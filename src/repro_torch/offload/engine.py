@@ -1,0 +1,644 @@
+"""The offload engine: one descriptor in, one result out (PyTorch port of
+``repro.offload.engine``, sim mode).
+
+This is the software analogue of the paper's NIC firmware loop. The NetFPGA
+accepted a single self-describing packet (Fig. 1) and ran the whole collective
+in hardware; here :class:`OffloadEngine` accepts a
+:class:`~repro_torch.core.packet.CollectiveDescriptor` (or its encoded uint32
+word vector straight off the wire), builds the described schedule once,
+caches it keyed by the descriptor words, and dispatches every later identical
+request straight from the cache, with hit/miss/latency telemetry standing in
+for the paper's 8 ns on-NIC timer.
+
+Payloads are stacked ``(p, ...)`` tensors on the engine's device (a GPU
+unless the caller asks for the CPU); PyTorch runs eagerly, so a "compiled"
+schedule is the lowered callable. Descriptors carrying a multi-axis topology
+(``axes`` + ``split``) go through the collective planner, the pass pipeline
+when the ``optimized`` flag is set, and the lowering-backend registry — where
+``backend="pallas"`` selects the fused CUDA kernel — and cache under a
+fingerprint of the plan, so descriptors whose plans converge share one
+schedule.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import time
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import algorithms as alg
+from repro_torch.core.operators import AssocOp, get_operator
+from repro_torch.core.packet import (
+    CollType,
+    CollectiveDescriptor,
+    WireDType,
+    WireOp,
+)
+from repro_torch.core.reduce_ops import (
+    allreduce_schedule,
+    barrier_schedule,
+    reduce_schedule,
+)
+from repro_torch.core.scan_collective import sim_scan
+from repro_torch.core.selector import select_algorithm
+from repro_torch.core.trees import resolve_device, tree_leaves
+from repro_torch.offload import planner
+
+PyTree = Any
+
+#: the coll kind each CollType tunes/selects against
+COLL_KIND = {
+    CollType.SCAN: "scan",
+    CollType.EXSCAN: "exscan",
+    CollType.REDUCE: "reduce",
+    CollType.ALLREDUCE: "allreduce",
+    CollType.BARRIER: "barrier",
+}
+
+_WIRE_OP_NAMES = {
+    WireOp.SUM: "sum",
+    WireOp.PROD: "prod",
+    WireOp.MAX: "max",
+    WireOp.MIN: "min",
+    WireOp.SSD: "ssd",
+    WireOp.FLASH: "flash",
+}
+_WIRE_OP_IDS = {v: k for k, v in _WIRE_OP_NAMES.items()}
+
+_WIRE_DTYPES = {
+    WireDType.INT32: torch.int32,
+    WireDType.FLOAT32: torch.float32,
+    WireDType.BFLOAT16: torch.bfloat16,
+    WireDType.FLOAT16: torch.float16,
+    WireDType.INT8: torch.int8,
+}
+
+#: the only dispatch mode this port has so far (the reference's mode tag
+#: for stacked single-device payloads; it is part of every cache key)
+_SIM_MODE = "<sim>"
+
+
+def wire_op_name(op: WireOp) -> str:
+    return _WIRE_OP_NAMES[WireOp(op)]
+
+
+def wire_op_id(name: str) -> WireOp:
+    try:
+        return _WIRE_OP_IDS[name]
+    except KeyError:
+        raise ValueError(
+            f"operator {name!r} has no wire id; known: {sorted(_WIRE_OP_IDS)}"
+        ) from None
+
+
+def wire_dtype(dt: WireDType) -> torch.dtype:
+    return _WIRE_DTYPES[WireDType(dt)]
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+@dataclasses.dataclass
+class EngineTelemetry:
+    """Counters the engine maintains per dispatch (the NIC status registers).
+
+    The device-latency and profiler fields are kept (zero) so ``snapshot()``
+    has the reference's keys; their producer, ``profile_offload``, is not
+    ported yet.
+    """
+
+    hits: int = 0
+    misses: int = 0
+    dispatches: int = 0
+    compiles: int = 0
+    errors: int = 0
+    calls_by_coll: Dict[str, int] = dataclasses.field(default_factory=dict)
+    total_latency_s: float = 0.0
+    last_latency_s: float = 0.0
+    timed_dispatches: int = 0
+    cache_size: int = 0
+    cache_clears: int = 0
+    latency_by_coll: Dict[str, Tuple[float, int]] = dataclasses.field(
+        default_factory=dict
+    )
+    device_latency_by_coll: Dict[str, Tuple[float, int]] = dataclasses.field(
+        default_factory=dict
+    )
+    latency_source_by_coll: Dict[str, str] = dataclasses.field(
+        default_factory=dict
+    )
+    profiler_fallbacks: int = 0
+    profiler_fallback_reasons: Dict[str, int] = dataclasses.field(
+        default_factory=dict
+    )
+    backend_fallbacks: int = 0
+    backend_fallback_reasons: Dict[str, int] = dataclasses.field(
+        default_factory=dict
+    )
+
+    def record_dispatch(self, coll: str, latency_s: Optional[float]) -> None:
+        self.dispatches += 1
+        self.calls_by_coll[coll] = self.calls_by_coll.get(coll, 0) + 1
+        if latency_s is not None:
+            self.timed_dispatches += 1
+            self.total_latency_s += latency_s
+            self.last_latency_s = latency_s
+            tot, n = self.latency_by_coll.get(coll, (0.0, 0))
+            self.latency_by_coll[coll] = (tot + latency_s, n + 1)
+            self.latency_source_by_coll.setdefault(coll, "wall")
+
+    def record_backend_fallback(self, coll: str, reason: str) -> None:
+        """A descriptor named a lowering backend whose capability check
+        missed for its plan, and the dispatch fell back to the registry
+        default. Counted once per unique resolution, not per dispatch."""
+        self.backend_fallbacks += 1
+        self.backend_fallback_reasons[reason] = (
+            self.backend_fallback_reasons.get(reason, 0) + 1
+        )
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
+    @property
+    def mean_latency_s(self) -> float:
+        return (
+            self.total_latency_s / self.timed_dispatches
+            if self.timed_dispatches
+            else 0.0
+        )
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "hits": self.hits,
+            "misses": self.misses,
+            "hit_rate": self.hit_rate,
+            "dispatches": self.dispatches,
+            "compiles": self.compiles,
+            "errors": self.errors,
+            "cache_size": self.cache_size,
+            "cache_clears": self.cache_clears,
+            "calls_by_coll": dict(self.calls_by_coll),
+            "mean_latency_us": self.mean_latency_s * 1e6,
+            "last_latency_us": self.last_latency_s * 1e6,
+            "latency_by_coll_us": {
+                coll: (tot / n) * 1e6 if n else 0.0
+                for coll, (tot, n) in self.latency_by_coll.items()
+            },
+            "device_latency_by_coll_us": {
+                coll: (tot / n) * 1e6 if n else 0.0
+                for coll, (tot, n) in self.device_latency_by_coll.items()
+            },
+            "latency_source_by_coll": dict(self.latency_source_by_coll),
+            "profiler_fallbacks": self.profiler_fallbacks,
+            "profiler_fallback_reasons": dict(self.profiler_fallback_reasons),
+            "backend_fallbacks": self.backend_fallbacks,
+            "backend_fallback_reasons": dict(self.backend_fallback_reasons),
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class CompiledSchedule:
+    """A cache entry: the closure that runs one descriptor's collective."""
+
+    key: bytes
+    coll: str
+    algo: str
+    op_name: str
+    p: int
+    fn: Callable[[PyTree], PyTree]
+
+
+class OffloadEngine:
+    """Descriptor-driven collective dispatch with a compiled-schedule cache.
+
+    The cache key is the encoded descriptor word vector with the per-rank
+    fields (rank, msg_type) normalized away — every rank of a communicator,
+    and every repeat offload, shares one schedule, which is exactly the
+    "program the NIC once, stream requests" contract of the paper.
+
+    ``device`` defaults to ``"cuda"``; on a machine without CUDA that raises
+    rather than quietly running on the CPU, so CPU runs pass
+    ``device="cpu"``. Payloads must already live on the engine's device.
+    """
+
+    def __init__(self, device: "torch.device | str" = "cuda") -> None:
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "OffloadEngine(device='cuda') needs a CUDA device and none "
+                "is available; pass device='cpu' to run on the CPU"
+            )
+        self.device = resolve_device(device)
+        self._cache: Dict[bytes, CompiledSchedule] = {}
+        # planned descriptors cache-key on the *optimized plan*, not the raw
+        # words: _plan_memo maps normalized words -> plan; _fp_memo memoizes
+        # the plan fingerprint per words; _plans stashes the plan under the
+        # final key for _compile.
+        self._plan_memo: Dict[bytes, Any] = {}
+        self._fp_memo: Dict[Tuple[bytes, Tuple], bytes] = {}
+        self._plans: Dict[bytes, Any] = {}
+        # memoized lowering-backend resolution per (requested name, plan):
+        # repeat dispatches neither re-run the capability check nor re-count
+        # a fallback in telemetry
+        self._backend_memo: Dict[Tuple[str, Any], Tuple] = {}
+        self.telemetry = EngineTelemetry()
+
+    # -- descriptor helpers ------------------------------------------------
+
+    @staticmethod
+    def _as_descriptor(
+        descriptor: "CollectiveDescriptor | np.ndarray",
+    ) -> CollectiveDescriptor:
+        if isinstance(descriptor, CollectiveDescriptor):
+            return descriptor
+        return CollectiveDescriptor.decode(np.asarray(descriptor))
+
+    @staticmethod
+    def _cache_key(desc: CollectiveDescriptor) -> bytes:
+        normalized = desc.normalized()
+        return normalized.encode().tobytes() + b"|" + _SIM_MODE.encode("utf-8")
+
+    def _plan_for(self, desc: CollectiveDescriptor):
+        """The (optimized, when flagged) plan a multi-axis descriptor names
+        plus its normalized wire words, memoized on those words."""
+        words = desc.normalized().encode().tobytes()
+        plan = self._plan_memo.get(words)
+        if plan is None:
+            itemsize = _itemsize(wire_dtype(desc.data_type))
+            payload_bytes = max(1, int(desc.count)) * itemsize
+            plan = planner.build_plan(
+                desc.coll_type,
+                desc.axes,
+                get_operator(wire_op_name(desc.operation)),
+                payload_bytes,
+                order=desc.split,
+                root=int(desc.root),
+            )
+            if desc.optimized:
+                from repro_torch.offload import passes
+
+                plan = passes.optimize_plan(plan)
+            if desc.chunks > 1:
+                # the descriptor's chunk word is authoritative: resolved at
+                # make_descriptor time, never re-derived here
+                plan = dataclasses.replace(plan, chunking=int(desc.chunks))
+            self._plan_memo[words] = plan
+        return plan, words
+
+    def _resolve_backend(
+        self, desc: CollectiveDescriptor, plan
+    ) -> Tuple[str, Tuple]:
+        """Resolve the descriptor's lowering-backend request through the
+        registry for this plan; returns ``(name, fingerprint_fields)``. Soft
+        capability misses fall back to the default and are counted in
+        telemetry exactly once per unique resolution."""
+        memo_key = (desc.backend, plan)
+        cached = self._backend_memo.get(memo_key)
+        if cached is None:
+            from repro_torch.offload import backends
+
+            backend, reason = backends.resolve(desc.backend, plan)
+            if reason:
+                self.telemetry.record_backend_fallback(
+                    desc.coll_type.name.lower(), reason
+                )
+            cached = (backend.name, backend.fingerprint())
+            self._backend_memo[memo_key] = cached
+        return cached
+
+    def _planned_cache_key(
+        self, words: bytes, plan, backend_fields: Tuple = ()
+    ) -> bytes:
+        """Key a planned request on everything its lowering reads — the
+        logical structure and the backend fingerprint. The fields and their
+        digest are the reference's (sim mode binds no axis names), so the
+        keys are byte-identical across the two packages."""
+        names_l = None  # the reference's per-level axis names; none in sim mode
+        digest = self._fp_memo.get((words, backend_fields))
+        if digest is None:
+            fields = (
+                plan.coll.name,
+                plan.op_name,
+                plan.logical_sizes,
+                plan.result,
+                plan.optimized,
+                names_l,
+                tuple(
+                    (
+                        int(ph.kind), ph.level, ph.algorithm,
+                        ph.inclusive, ph.root, ph.src, ph.dst, ph.dst2,
+                        ph.guard_levels,
+                    )
+                    for ph in plan.phases
+                ),
+            )
+            # chunked plans get an extra fingerprint field; C=1 keeps the
+            # pre-chunking digest bit-for-bit (cache-key stability)
+            if plan.chunking > 1:
+                fields = fields + (("chunks", int(plan.chunking)),)
+            # the default backend contributes no fields
+            fields = fields + backend_fields
+            digest = hashlib.blake2s(repr(fields).encode("utf-8")).digest()
+            self._fp_memo[(words, backend_fields)] = digest
+        return b"plan|" + digest + b"|" + _SIM_MODE.encode("utf-8")
+
+    def make_descriptor(
+        self,
+        coll: "CollType | str",
+        *,
+        p: Optional[int] = None,
+        payload_bytes: int,
+        op: "AssocOp | str" = "sum",
+        algorithm: str = "auto",
+        comm_id: int = 0,
+        root: int = 0,
+        data_type: WireDType = WireDType.FLOAT32,
+        count: Optional[int] = None,
+        axes: Optional[Sequence[int]] = None,
+        split: "str | Sequence[int]" = "auto",
+        optimize: "str | bool" = "auto",
+        chunks: "str | int" = "auto",
+        backend: str = "auto",
+    ) -> CollectiveDescriptor:
+        """Build an offload request, resolving ``algorithm="auto"`` through
+        the (tuning-table-aware) selector of the *requested* coll kind.
+
+        With ``axes`` (2-3 mesh-axis sizes, outermost first), the request is
+        a planned hierarchical collective: ``split="auto"`` asks the planner
+        for the tuned logical axis order, and the resolved ``algo_type``
+        names the innermost intra-phase schedule. ``optimize`` controls the
+        plan-optimizer pass pipeline (``"auto"`` consults the measured
+        winner / cost model; True/False force it). ``chunks`` is the
+        chunked-streaming chunk count (``"auto"`` resolves through the
+        schedule winner / pipelined cost model, an int forces it).
+        ``backend`` names the lowering backend for planned requests:
+        ``"auto"`` consults the tuner's measured winner (the default when
+        untuned), ``"pallas"`` pins the fused kernel — subject to the soft
+        capability fallback at compile time. Resolution is identical to the
+        reference's, so the descriptor words are too.
+        """
+        if isinstance(coll, str):
+            coll = CollType[coll.upper()]
+        op = get_operator(op)
+        if axes is not None:
+            axes = tuple(int(a) for a in axes)
+            if p is None:
+                p = int(np.prod(axes))
+        if p is None:
+            raise ValueError("either p or axes is required")
+        order: "tuple[int, ...]" = ()
+        optimized = False
+        chunk_count = 1
+        backend_name = "" if backend == "auto" else str(backend)
+        if axes is not None and len(axes) > 1:
+            from repro_torch.offload import passes
+
+            if backend == "auto":
+                backend_name = passes.choose_backend(
+                    coll, axes, payload_bytes, op
+                )
+
+            if optimize == "auto" and chunks == "auto":
+                optimized, chunk_count = passes.choose_schedule(
+                    coll, axes, payload_bytes, op
+                )
+            else:
+                if optimize == "auto":
+                    optimized = passes.choose_optimization(
+                        coll, axes, payload_bytes, op
+                    )
+                else:
+                    optimized = bool(optimize)
+                if chunks == "auto":
+                    plan = planner.build_plan(
+                        coll, axes, op, payload_bytes, optimize=optimized
+                    )
+                    chunk_count = (
+                        plan.chunking
+                        if optimized
+                        else passes.select_chunking(
+                            plan, payload_bytes
+                        ).chunking
+                    )
+                else:
+                    chunk_count = int(chunks)
+            order = (
+                planner.plan_axis_order(
+                    coll, axes, payload_bytes, op, optimize=optimized
+                )
+                if split == "auto"
+                else tuple(int(i) for i in split)
+            )
+            if algorithm == "auto":
+                # the innermost intra phase's schedule, for the wire field
+                inner_p = axes[order[-1]]
+                algorithm = select_algorithm(
+                    inner_p, payload_bytes, op, coll=COLL_KIND[coll]
+                )
+        else:
+            if chunks != "auto" and int(chunks) > 1:
+                raise ValueError(
+                    "chunked streaming requires a multi-axis (planned) "
+                    f"request; got chunks={chunks} without axes"
+                )
+            if algorithm == "auto":
+                algorithm = select_algorithm(
+                    p, payload_bytes, op, coll=COLL_KIND[coll]
+                )
+        itemsize = _itemsize(wire_dtype(data_type))
+        if count is None:
+            count = max(1, payload_bytes // itemsize)
+        elif count * itemsize != payload_bytes:
+            raise ValueError(
+                f"count={count} x {itemsize}B contradicts "
+                f"payload_bytes={payload_bytes}"
+            )
+        return CollectiveDescriptor(
+            comm_id=comm_id,
+            comm_size=p,
+            coll_type=coll,
+            algo_type=algorithm,
+            root=root,
+            operation=wire_op_id(op.name),
+            data_type=data_type,
+            count=count,
+            axes=axes if (axes is not None and len(axes) > 1) else (),
+            split=order,
+            optimized=optimized,
+            chunks=chunk_count,
+            backend=backend_name,
+        )
+
+    # -- dispatch ----------------------------------------------------------
+
+    def offload(
+        self,
+        descriptor: "CollectiveDescriptor | np.ndarray",
+        x: Optional[PyTree] = None,
+    ) -> PyTree:
+        """Run the collective the descriptor describes; return its result.
+
+        ``x`` is the stacked ``(p, ...)`` pytree of per-rank contributions
+        on the engine's device (leading axis in the plan's *logical* rank
+        order). BARRIER ignores ``x``. The dispatch is timed on the host
+        clock, bracketed by ``torch.cuda.synchronize()`` on a GPU.
+        """
+        try:
+            desc = self._as_descriptor(descriptor)
+        except Exception:
+            self.telemetry.errors += 1
+            raise
+        if len(desc.axes) > 1:
+            try:
+                plan, words = self._plan_for(desc)
+            except Exception:
+                self.telemetry.errors += 1
+                raise
+            _, bfields = self._resolve_backend(desc, plan)
+            key = self._planned_cache_key(words, plan, backend_fields=bfields)
+            self._plans.setdefault(key, plan)
+        else:
+            key = self._cache_key(desc)
+        sched = self._cache.get(key)
+        if sched is None:
+            try:
+                sched = self._compile(desc, key)
+            except Exception:
+                self.telemetry.errors += 1
+                raise
+            self._cache[key] = sched
+            self.telemetry.misses += 1
+            self.telemetry.compiles += 1
+            self.telemetry.cache_size = len(self._cache)
+        else:
+            self.telemetry.hits += 1
+
+        if desc.coll_type != CollType.BARRIER:
+            self._validate_payload(desc, x)
+
+        on_gpu = self.device.type == "cuda"
+        if on_gpu:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        out = sched.fn(x)
+        if on_gpu:
+            torch.cuda.synchronize(self.device)
+        latency = time.perf_counter() - t0
+        self.telemetry.record_dispatch(sched.coll, latency)
+        return out
+
+    def cache_size(self) -> int:
+        return len(self._cache)
+
+    def clear(self) -> None:
+        # reset the gauge at clear time, and the plan memos: a retune can
+        # change the per-phase algorithms a plan compiles to
+        self._cache.clear()
+        self._plan_memo.clear()
+        self._fp_memo.clear()
+        self._plans.clear()
+        self._backend_memo.clear()
+        self.telemetry.cache_size = 0
+        self.telemetry.cache_clears += 1
+
+    # -- internals ---------------------------------------------------------
+
+    def _validate_payload(self, desc: CollectiveDescriptor, x: PyTree) -> None:
+        if x is None:
+            raise ValueError(
+                f"{desc.coll_type.name} offload requires a payload"
+            )
+        for leaf in tree_leaves(x):
+            if leaf.ndim < 1 or leaf.shape[0] != desc.comm_size:
+                raise ValueError(
+                    "sim-mode payload leaves need a leading rank axis of "
+                    f"comm_size={desc.comm_size}; got shape {tuple(leaf.shape)}"
+                )
+            if leaf.device != self.device:
+                raise ValueError(
+                    f"payload lives on {leaf.device} but the engine runs on "
+                    f"{self.device}; move it explicitly"
+                )
+
+    def _compile(self, desc: CollectiveDescriptor, key: bytes) -> CompiledSchedule:
+        op = get_operator(wire_op_name(desc.operation))
+        algo = desc.algo_type
+        coll = desc.coll_type
+        p = int(desc.comm_size)
+        root = int(desc.root)
+        if coll == CollType.REDUCE and not 0 <= root < p:
+            raise ValueError(
+                f"REDUCE root={root} out of range for comm_size={p}"
+            )
+
+        if len(desc.axes) > 1:
+            fn, bname = self._build_planned(desc, op, plan=self._plans.get(key))
+            algo = f"plan{desc.split}:{algo}"
+            if desc.optimized:
+                algo = f"opt:{algo}"
+            if desc.chunks > 1:
+                algo = f"chunk{desc.chunks}:{algo}"
+            if bname is not None:
+                # only non-default backends tag the schedule
+                algo = f"{bname}:{algo}"
+        else:
+            fn = self._build_sim(coll, op, algo, p, root, self.device)
+        return CompiledSchedule(
+            key=key,
+            coll=coll.name.lower(),
+            algo=algo,
+            op_name=op.name,
+            p=p,
+            fn=fn,
+        )
+
+    def _build_planned(
+        self, desc: CollectiveDescriptor, op: AssocOp, plan
+    ) -> "Tuple[Callable[[PyTree], PyTree], Optional[str]]":
+        """Lower a multi-axis descriptor through the lowering-backend
+        registry; returns ``(fn, backend_tag)`` where the tag is the
+        resolved backend's name for non-defaults and ``None`` when the
+        default lowered the plan."""
+        from repro_torch.offload import backends
+
+        if plan is None:
+            raise ValueError(
+                "planned compile without a stashed plan; dispatch through "
+                "offload(), which builds it via _plan_for"
+            )
+        bname, _ = self._resolve_backend(desc, plan)
+        backend = backends.get_backend(bname)
+        tag = bname if bname != backends.default_backend_name() else None
+        return backend.lower(plan, op, device=self.device), tag
+
+    @staticmethod
+    def _build_sim(
+        coll: CollType, op: AssocOp, algo: str, p: int, root: int,
+        device: torch.device,
+    ) -> Callable[[PyTree], PyTree]:
+        if coll == CollType.SCAN:
+            return lambda x: sim_scan(x, op, p, algorithm=algo, inclusive=True)
+        if coll == CollType.EXSCAN:
+            return lambda x: sim_scan(
+                x, op, p, algorithm=algo, inclusive=False
+            )
+        if coll == CollType.REDUCE:
+            return lambda x: reduce_schedule(
+                alg.SimBackend(p, device), x, op, root=root, algorithm=algo
+            )
+        if coll == CollType.ALLREDUCE:
+            return lambda x: allreduce_schedule(
+                alg.SimBackend(p, device), x, op, algorithm=algo
+            )
+        if coll == CollType.BARRIER:
+            return lambda _x: barrier_schedule(
+                alg.SimBackend(p, device), algorithm=algo
+            )
+        raise ValueError(f"unknown coll_type {coll!r}")
