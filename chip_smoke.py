@@ -6,23 +6,39 @@
 Phases, one JSON line each; any failure raises and the script exits
 non-zero without printing a result:
 
-1. device  — the card, its power limit, TF32 off, the kernel library built
-             from ``src/repro_torch/kernels/csrc`` with nvcc.
-2. kernel  — K1 (the fused collective kernel) against its plain PyTorch
-             version on the card, for every phase kind, operator and wire
-             dtype, over several rank counts, a ragged width, NaN inputs and
-             a rank count large enough for the global-scratch column path.
-3. main    — the port's main path: ``OffloadEngine()`` (on the GPU by
-             default) -> ``make_descriptor(..., backend="pallas", chunks=1)``
-             -> ``offload`` for SCAN, EXSCAN, ALLREDUCE and BARRIER at
-             p = 8 and 16 over the osu_scan message sizes (4 B - 1 MiB per
-             rank) plus a 25 MiB ALLREDUCE, each held against the port's
-             default sim lowering and, on a small input, against numpy.
-             K1's launch count is zeroed right before and read right after.
-4. times   — K1, its plain version and one PyTorch library call at the main
-             path's shapes: device time from ``torch.profiler`` and the
-             per-call time with CUDA events (host overhead included), beside
-             the least time the card's memory bandwidth allows.
+1. device   — the card, its power limit, TF32 off, every kernel library
+              built from ``src/repro_torch/kernels/csrc`` with nvcc (one nvcc
+              per source, all started together), ptxas registers and spills.
+2. kernel   — K1 (the fused collective kernel) against its plain PyTorch
+              version on the card, for every phase kind, operator and wire
+              dtype, over several rank counts, a ragged width, NaN inputs and
+              a rank count large enough for the global-scratch column path.
+3. onchip   — K3 (prefix scan), K4 (SSD scan) and K5 (flash attention)
+              through ``repro_torch.kernels.ops`` against their plain versions
+              on the card: ragged, N-d and NaN inputs, every mask of K5.
+4. main     — the offload path: ``OffloadEngine()`` (on the GPU by default)
+              -> ``make_descriptor(..., backend="pallas", chunks=1)`` ->
+              ``offload`` for SCAN, EXSCAN, ALLREDUCE and BARRIER at p = 8 and
+              16 over the osu_scan message sizes (4 B - 1 MiB per rank) plus a
+              25 MiB ALLREDUCE, each held against the port's default sim
+              lowering and, on a small input, against numpy. K1's launch count
+              is zeroed right before and read right after.
+5. entry    — the on-chip entry points at full width: Mamba2-130m's segment
+              scan, OLMoE's expert offsets, memory-bound (8192, 8192) scans,
+              Mamba2-130m's SSD recurrence, SmolLM-360M and Gemma3-27B
+              attention and a decode step. The launch counts of K3, K4 and K5
+              are zeroed right before and read right after; each result is
+              held against its plain version.
+6. baseline — the paper's comparison (Figs. 4-5) at p = 8, float32 SUM:
+              host-stepped ``host_scan`` (a dispatch and a sync per hop)
+              against the whole schedule as one CUDA graph replay, and K1
+              through the engine for hillis_steele; host_scan == sim_scan
+              bitwise.
+7. times    — every kernel, its plain version and one PyTorch library call
+              at the main and entry shapes: device time from
+              ``torch.profiler`` and the per-call time with CUDA events
+              (host overhead included), beside the least time the card's
+              memory bandwidth or peak rate allows.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is the result object.
@@ -30,6 +46,7 @@ prints them; the last line is the result object.
 
 from __future__ import annotations
 
+import importlib
 import json
 import re
 import subprocess
@@ -47,8 +64,27 @@ _MEM_BW = (
     ("H100", 3.35e12),
 )
 
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused_collective.cu"
-KERNEL_REPLACES = "src/repro/kernels/pallas_collective.py:362"
+#: dense peak rate in FLOP/s by card name and dtype (NVIDIA's data sheets;
+#: float32 is the CUDA cores' rate, TF32 stays off)
+_PEAK_FLOPS = (
+    ("H100 PCIe", {"bfloat16": 756e12, "float16": 756e12, "float32": 51e12}),
+    ("H100", {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}),
+    ("H200", {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}),
+)
+
+CSRC = "src/repro_torch/kernels/csrc"
+#: (name in the kernels line, CUDA source, TPU kernel it replaces, the
+#: kernel's function name as the profiler lists it)
+KERNELS = {
+    "k1": ("k1_fused_comm", "fused_collective",
+           "src/repro/kernels/pallas_collective.py:362", "k1_kernel"),
+    "k3": ("k3_prefix_scan", "prefix_scan",
+           "src/repro/kernels/prefix_scan.py:45", "k3_scan_kernel"),
+    "k4": ("k4_ssd_scan", "ssd_scan",
+           "src/repro/kernels/ssd_scan.py:33", "k4_ssd_kernel"),
+    "k5": ("k5_flash_attention", "flash_attention",
+           "src/repro/kernels/flash_attention.py:27", "k5_flash_kernel"),
+}
 
 
 def emit(obj) -> None:
@@ -60,6 +96,24 @@ def mem_bandwidth(name: str) -> float:
         if key in name:
             return bw
     raise RuntimeError(f"no memory bandwidth on record for {name!r}")
+
+
+def peak_flops(name: str, dtype) -> float:
+    for key, rates in _PEAK_FLOPS:
+        if key in name:
+            return rates[str(dtype).replace("torch.", "")]
+    raise RuntimeError(f"no peak rate on record for {name!r}")
+
+
+def kernel_modules():
+    """The wrapper module of each kernel (``repro_torch.kernels`` exports the
+    entry-point functions under the K3-K5 module names)."""
+    return {
+        "k1": importlib.import_module("repro_torch.kernels.fused_collective"),
+        "k3": importlib.import_module("repro_torch.kernels.prefix_scan"),
+        "k4": importlib.import_module("repro_torch.kernels.ssd_scan"),
+        "k5": importlib.import_module("repro_torch.kernels.flash_attention"),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +206,7 @@ def tolerance(torch, op, dtype):
 
 
 def phase_device(torch):
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import SOURCES, _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -161,11 +215,18 @@ def phase_device(torch):
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    path = _build.build_all(["fused_collective"])["fused_collective"]
+    paths = _build.build_all(SOURCES)
     build_s = time.perf_counter() - t0
-    log = _build.build_log("fused_collective")
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
+    ptxas = {}
+    for src in SOURCES:
+        log = _build.build_log(src)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
+        ptxas[src] = {
+            "kernels": len(regs),
+            "max_registers": max(regs) if regs else None,
+            "max_spill_store_bytes": max(spills) if spills else None,
+        }
     name = torch.cuda.get_device_name(0)
     emit({
         "phase": "device",
@@ -174,13 +235,9 @@ def phase_device(torch):
         "nvidia_smi": smi,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
-        "library": str(path.relative_to(REPO)),
+        "libraries": [str(p.relative_to(REPO)) for p in paths.values()],
         "build_s": round(build_s, 3),
-        "ptxas": {
-            "kernels": len(regs),
-            "max_registers": max(regs) if regs else None,
-            "max_spill_store_bytes": max(spills) if spills else None,
-        },
+        "ptxas": ptxas,
     })
     return name, smi
 
@@ -377,6 +434,378 @@ def phase_main(torch, device):
     })
     return launches
 
+# ---------------------------------------------------------------------------
+# K3-K5: the on-chip entry points of repro_torch.kernels
+# ---------------------------------------------------------------------------
+
+
+# tolerance (rtol, atol) of K3 against its plain version; (0, 0) = bitwise.
+# max is exact and integer sums and products wrap exactly. Floating add/mul
+# combine in another order than torch's scan; bf16/fp16 carry in float32
+# and round once per output in both, so an ordering difference can move an
+# output by one rounding step (2^-7 relative in bf16, 2^-10 in fp16).
+def scan_tolerance(torch, op, dtype):
+    if op == "max" or not dtype.is_floating_point:
+        return 0.0, 0.0
+    rtol = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 2e-3}[dtype]
+    atol = (1e-3 if dtype == torch.float32 else rtol) if op == "add" else 0.0
+    return rtol, atol
+
+
+# K4: one sequential recurrence against the plain version's doubling scan
+# with h0 folded in after it (float32 state in both; bf16 rounds once)
+SSD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
+# K5: online against full softmax in float32 (TF32 off); bf16 also rounds p
+# to bf16 before the P.V product, as the reference kernel does
+FLASH_TOL = {"float32": (5e-4, 5e-4), "bfloat16": (2e-2, 2e-2)}
+
+
+def scan_input(torch, gen, op, dtype, shape, device, *, nan=False):
+    if dtype in (torch.int32, torch.int8):
+        hi = 4 if op == "mul" else (1 << 30 if dtype == torch.int32 else 128)
+        return torch.randint(-hi, hi, shape, generator=gen, device=device,
+                             dtype=dtype)
+    if op == "mul":
+        # log-symmetric factors: a product over 70,000 steps stays a normal
+        # float (a uniform draw around 1 drifts down into subnormals)
+        x = torch.exp(0.01 * torch.randn(shape, generator=gen, device=device))
+    else:
+        x = torch.randn(shape, generator=gen, device=device)
+    if nan and shape[-1] > 1:
+        x[..., 0, shape[-1] // 3] = float("nan")
+    return x.to(dtype)
+
+
+def ssd_input(torch, gen, dtype, shape, device, with_h0):
+    a = 0.5 + 0.5 * torch.rand(shape, generator=gen, device=device)
+    b = torch.randn(shape, generator=gen, device=device)
+    h0 = None
+    if with_h0:
+        h0 = torch.randn(shape[:-2] + shape[-1:], generator=gen, device=device)
+        h0 = h0.to(dtype)
+    return a.to(dtype), b.to(dtype), h0
+
+
+def qkv_input(torch, gen, dtype, BH, Sq, Skv, D, device):
+    q = torch.randn((BH, Sq, D), generator=gen, device=device).to(dtype)
+    k = torch.randn((BH, Skv, D), generator=gen, device=device).to(dtype)
+    v = torch.randn((BH, Skv, D), generator=gen, device=device).to(dtype)
+    return q, k, v
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def phase_onchip(torch, device):
+    from repro_torch.kernels import ops, ref
+
+    mods = kernel_modules()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    worst = {}
+
+    def check(key, got, want, rtol, atol, what, launched):
+        if launched != 1:
+            raise AssertionError(f"{what}: {launched} kernel launches")
+        torch.cuda.synchronize()
+        err = assert_match(torch, got, want, rtol, atol, what)
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    cases = 0
+    # K3: every op over float32 / bf16 / int32 on ragged, N-d and long rows
+    # (with a NaN for max), and fp16 / int8 on two shapes
+    shapes = [(1, 1), (3, 257), (2, 1000), (2, 3, 64), (2, 3, 5, 700), (1, 70000)]
+    combos = [(op, dt, shp) for shp in shapes for op in ("add", "max", "mul")
+              for dt in (torch.float32, torch.bfloat16, torch.int32)]
+    combos += [(op, dt, shp) for shp in ((3, 257), (1, 70000))
+               for op in ("add", "max", "mul") for dt in (torch.float16, torch.int8)]
+    for op, dtype, shape in combos:
+        x = scan_input(torch, gen, op, dtype, shape, device,
+                       nan=op == "max" and dtype.is_floating_point)
+        for exclusive in (False, True):
+            before = mods["k3"].launches
+            got = ops.prefix_scan(x, op=op, exclusive=exclusive)
+            launched = mods["k3"].launches - before
+            want = ref.ref_prefix_scan(x, op, exclusive=exclusive)
+            rtol, atol = scan_tolerance(torch, op, dtype)
+            check(f"k3:{op}:{dtype_name(dtype)}", got, want, rtol, atol,
+                  f"K3 {op} {dtype} {shape} exclusive={exclusive}", launched)
+            cases += 1
+    # K4: ragged T, T = 1, N-d, Mamba width, with and without h0
+    for shape in ((2, 300, 64), (3, 1, 40), (2, 2, 37, 48), (1, 1000, 1536)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_h0 in (False, True):
+                a, b, h0 = ssd_input(torch, gen, dtype, shape, device, with_h0)
+                before = mods["k4"].launches
+                got = ops.ssd_scan(a, b, h0)
+                launched = mods["k4"].launches - before
+                want = ref.ref_ssd_scan(a, b, h0)
+                rtol, atol = SSD_TOL[dtype_name(dtype)]
+                check(f"k4:{dtype_name(dtype)}", got, want, rtol, atol,
+                      f"K4 {dtype} {shape} h0={with_h0}", launched)
+                cases += 1
+    # K5: (BH, Sq, Skv, D, causal, window, q_offset)
+    flash_cases = [
+        (2, 128, 128, 32, True, 0, 0),
+        (2, 128, 128, 64, False, 0, 0),
+        (2, 128, 128, 128, True, 0, 0),
+        (2, 100, 300, 64, False, 0, 0),       # ragged Sq and Skv
+        (2, 100, 300, 128, True, 0, 200),     # q_offset
+        (3, 1, 300, 64, True, 0, 299),        # one query row
+        (2, 1, 2048, 32, True, 0, 2047),
+        (2, 256, 256, 64, True, 16, 0),       # window 16
+        (1, 1100, 1100, 128, True, 1024, 0),  # window 1024
+        (2, 64, 300, 32, False, 16, 100),     # window without causal
+        (1, 70, 50, 64, True, 0, -30),        # rows that see no key
+    ]
+    for BH, Sq, Skv, D, causal, window, q_offset in flash_cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv_input(torch, gen, dtype, BH, Sq, Skv, D, device)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            before = mods["k5"].launches
+            got = ops.flash_attention(q, k, v, **kw)
+            launched = mods["k5"].launches - before
+            want = ref.ref_flash_attention(q, k, v, **kw)
+            rtol, atol = FLASH_TOL[dtype_name(dtype)]
+            check(f"k5:{dtype_name(dtype)}", got, want, rtol, atol,
+                  f"K5 {dtype} {(BH, Sq, Skv, D)} {kw}", launched)
+            cases += 1
+    emit({
+        "phase": "onchip", "cases": cases, "max_abs_err": worst,
+        "tolerances": {
+            "k3": "bitwise for max and integers; float32 rtol 1e-4 (add atol "
+                  "1e-3); bf16 rtol 1e-2, fp16 rtol 2e-3 (add atol = rtol)",
+            "k4": SSD_TOL, "k5": FLASH_TOL,
+        },
+        "ok": True,
+    })
+
+
+def visible_pairs(Sq, Skv, *, causal, window, q_offset) -> int:
+    """(query, key) pairs the masks leave visible."""
+    total = 0
+    for q in range(q_offset, q_offset + Sq):
+        lo = max(0, q - window + 1) if window > 0 else 0
+        hi = min(Skv - 1, q) if causal else Skv - 1
+        total += max(0, hi - lo + 1)
+    return total
+
+
+class EntryCase:
+    """One call of an entry point at a full-width shape, with its plain
+    version, a PyTorch library call that computes the same function (or
+    None), its tolerance and the least time the card could take for it."""
+
+    def __init__(self, key, label, call, plain, library, tol, nbytes,
+                 flops=0, dtype=None, head=False):
+        self.key, self.label, self.head = key, label, head
+        self.call, self.plain, self.library = call, plain, library
+        self.tol, self.nbytes, self.flops, self.dtype = tol, nbytes, flops, dtype
+
+    def bound(self, card):
+        by_bytes = self.nbytes / mem_bandwidth(card) * 1e3
+        by_ops = self.flops / peak_flops(card, self.dtype) * 1e3 if self.flops else 0.0
+        return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
+
+
+def entry_cases(torch, device):
+    """Full-width inputs, made on the card from a seed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    cases = []
+
+    def scan_case(label, x, op, exclusive=False, head=False):
+        library = None
+        if not exclusive:
+            if op == "max":
+                library = lambda: torch.cummax(x, -1)  # noqa: E731
+            else:
+                fn = torch.cumsum if op == "add" else torch.cumprod
+                library = lambda: fn(x, -1, dtype=x.dtype)  # noqa: E731
+        cases.append(EntryCase(
+            "k3", label,
+            lambda: ops.prefix_scan(x, op=op, exclusive=exclusive),
+            lambda: ref.ref_prefix_scan(x, op, exclusive=exclusive),
+            library, scan_tolerance(torch, op, x.dtype),
+            2 * x.numel() * x.element_size(), head=head,
+        ))
+
+    # Mamba2-130m prefill: within-chunk log-decay scan (B, nc, H, Q) =
+    # (8, 16, 24, 256): d_inner 1536 / head_dim 64 = 24 heads, chunk 256,
+    # sequence 4096 = 16 chunks
+    seg = -0.1 * torch.rand((8, 16, 24, 256), generator=gen, device=device)
+    scan_case("mamba2_130m segment scan (8,16,24,256) f32 add", seg, "add")
+    # OLMoE-1B-7B: exclusive scan of 64 expert counts
+    counts = torch.randint(0, 512, (1, 64), generator=gen, device=device,
+                           dtype=torch.int32)
+    scan_case("olmoe_1b_7b expert offsets (1,64) int32 add exclusive",
+              counts, "add", exclusive=True)
+    # memory-bound: I/O offsets / radix bucket bases over 256 MiB
+    big = (8192, 8192)
+    for op, dtype in (("add", torch.float32), ("max", torch.float32),
+                      ("mul", torch.float32), ("add", torch.bfloat16),
+                      ("add", torch.int32)):
+        x = scan_input(torch, gen, op, dtype, big, device)
+        scan_case(f"(8192,8192) {dtype_name(dtype)} {op}", x, op,
+                  head=(op, dtype) == ("add", torch.float32))
+
+    # Mamba2-130m SSD recurrence: a, b (8, 4096, 1536), h0 (8, 1536)
+    shape = (8, 4096, 1536)
+    a = 0.9 + 0.1 * torch.rand(shape, generator=gen, device=device)
+    b = torch.randn(shape, generator=gen, device=device)
+    h0 = torch.randn((8, 1536), generator=gen, device=device)
+    for h in (None, h0):
+        nbytes = 3 * a.numel() * 4 + (0 if h is None else h.numel() * 4)
+        cases.append(EntryCase(
+            "k4", f"mamba2_130m ssd (8,4096,1536) f32 h0={h is not None}",
+            lambda h=h: ops.ssd_scan(a, b, h),
+            lambda h=h: ref.ref_ssd_scan(a, b, h),
+            None, SSD_TOL["float32"], nbytes, head=h is None,
+        ))
+
+    # attention: (BH, Sq, Skv, D, causal, window, q_offset)
+    for label, dtype, (BH, Sq, Skv, D, causal, window, q_offset) in (
+        ("smollm_360m causal (60,2048,64) bf16", torch.bfloat16,
+         (4 * 15, 2048, 2048, 64, True, 0, 0)),
+        ("smollm_360m causal (60,2048,64) f32", torch.float32,
+         (4 * 15, 2048, 2048, 64, True, 0, 0)),
+        ("gemma3_27b local causal window 1024 (64,4096,128) bf16",
+         torch.bfloat16, (2 * 32, 4096, 4096, 128, True, 1024, 0)),
+        ("smollm_360m decode step (60,1,2048) q_offset 2047 bf16",
+         torch.bfloat16, (4 * 15, 1, 2048, 64, True, 0, 2047)),
+    ):
+        q, k, v = qkv_input(torch, gen, dtype, BH, Sq, Skv, D, device)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        # the library call sees (1, BH, S, D), the layout its fused
+        # backends take
+        mask = ref.attention_mask(Sq, Skv, kv_len=None, device=device, **kw)
+        if bool(mask.all()):
+            sdpa = {}
+        elif causal and window == 0 and q_offset == 0 and Sq == Skv:
+            sdpa = {"is_causal": True}
+        else:
+            sdpa = {"attn_mask": mask}
+
+        def library(q4=q[None], k4=k[None], v4=v[None], sdpa=sdpa):
+            return F.scaled_dot_product_attention(q4, k4, v4, **sdpa)
+
+        cases.append(EntryCase(
+            "k5", label,
+            lambda q=q, k=k, v=v, kw=kw: ops.flash_attention(q, k, v, **kw),
+            lambda q=q, k=k, v=v, kw=kw: ref.ref_flash_attention(q, k, v, **kw),
+            library, FLASH_TOL[dtype_name(dtype)],
+            (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+            flops=4 * BH * D * visible_pairs(Sq, Skv, **kw), dtype=dtype,
+            head=not cases or cases[-1].key != "k5",
+        ))
+    torch.cuda.synchronize()
+    return cases
+
+
+def phase_entry(torch, device):
+    mods = kernel_modules()
+    cases = entry_cases(torch, device)
+    for key in ("k3", "k4", "k5"):
+        mods[key].launches = 0
+    outs = [c.call() for c in cases]
+    torch.cuda.synchronize()
+    launches = {key: mods[key].launches for key in ("k3", "k4", "k5")}
+    for key, n in launches.items():
+        want = sum(c.key == key for c in cases)
+        if n != want:
+            raise AssertionError(f"{key}: {n} launches for {want} entry calls")
+    rows = []
+    for case, got in zip(cases, outs):
+        want = case.plain()
+        torch.cuda.synchronize()
+        err = assert_match(torch, got, want, *case.tol, f"entry {case.label}")
+        for leaf in leaves_of(got):
+            if leaf.is_floating_point() and not bool(torch.isfinite(leaf).all()):
+                raise AssertionError(f"entry {case.label}: non-finite output")
+        rows.append({"kernel": case.key, "call": case.label, "max_abs_err": err,
+                     "tol": list(case.tol)})
+        del want
+    del outs
+    torch.cuda.empty_cache()
+    emit({"phase": "entry", "launches": launches, "calls": rows, "ok": True})
+    return launches, cases
+
+
+BASELINE_SIZES = (4, 16, 64, 256, 1024, 1 << 20)
+BASELINE_ALGOS = ("sequential", "recursive_doubling", "binomial_tree",
+                  "sklansky", "hillis_steele")
+
+
+def phase_baseline(torch, device):
+    """Host-stepped vs one graph replay vs K1 through the engine, p = 8,
+    float32 SUM (the paper's Figs. 4-5 on one card)."""
+    from statistics import median
+
+    from repro_torch import OffloadEngine
+    from repro_torch.core.scan_collective import sim_scan
+
+    hs = importlib.import_module("repro_torch.core.host_scan")
+    k1 = kernel_modules()["k1"]
+    p = 8
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    eng = OffloadEngine()
+    rows = []
+    for nb in BASELINE_SIZES:
+        x = torch.randn((p, max(1, nb // 4)), generator=gen, device=device)
+        for algo in BASELINE_ALGOS:
+            want = sim_scan(x, "sum", p, algorithm=algo)
+            got = hs.host_scan(x, "sum", p, algorithm=algo)
+            assert_match(torch, got, want, 0.0, 0.0, f"host_scan {algo} {nb}B")
+            replay, out = hs.offloaded_scan(x, "sum", p, algorithm=algo)
+            replay()
+            torch.cuda.synchronize()
+            assert_match(torch, out, want, 0.0, 0.0, f"graph {algo} {nb}B")
+            del replay, out
+            row = {
+                "bytes_per_rank": nb, "algorithm": algo,
+                "host_stepped_us": 1e6 * median(
+                    hs.time_host_scan(x, "sum", p, algorithm=algo)
+                    for _ in range(3)),
+                "graph_replay_us": 1e6 * median(
+                    hs.time_offloaded_scan(x, "sum", p, algorithm=algo)
+                    for _ in range(3)),
+                "hops": len(hs.schedule_trace(algo, p)),
+                "k1_dispatch_us": None,
+            }
+            if algo == "hillis_steele":
+                desc = eng.make_descriptor(
+                    "SCAN", axes=(1, p), payload_bytes=nb, algorithm=algo,
+                    backend="pallas", chunks=1)
+                before = k1.launches
+                got = eng.offload(desc, x)
+                if k1.launches == before:
+                    raise AssertionError("the engine did not launch K1")
+                assert_match(torch, got, want, 0.0, 0.0, f"K1 dispatch {nb}B")
+
+                def dispatch_median():
+                    lat = []
+                    for _ in range(20):
+                        eng.offload(desc, x)
+                        lat.append(eng.telemetry.last_latency_s)
+                    return median(lat)
+
+                row["k1_dispatch_us"] = 1e6 * median(
+                    dispatch_median() for _ in range(3))
+            rows.append(row)
+    if eng.telemetry.snapshot()["backend_fallbacks"]:
+        raise AssertionError("the engine fell back from K1")
+    torch.cuda.empty_cache()
+    emit({"phase": "baseline", "p": p, "op": "sum", "dtype": "float32",
+          "timing": "host clock around work that ends in a synchronize; "
+                    "median of three medians of 20",
+          "rows": rows, "host_scan_equals_sim_scan": "bitwise", "ok": True})
+
 
 def time_ms(torch, fn, iters):
     for _ in range(3):
@@ -413,6 +842,12 @@ def device_ms(torch, fn, iters, name=None):
         if name is None or name in evt.key:
             total_us += t
     return total_us / iters / 1e3 if total_us > 0 else None
+
+
+def kernel_ident(key):
+    name, src, replaces, _ = KERNELS[key]
+    return {"name": name, "route": "cuda", "source": f"{CSRC}/{src}.cu",
+            "replaces": replaces}
 
 
 def phase_times(torch, device, card, launches):
@@ -489,10 +924,7 @@ def phase_times(torch, device, card, launches):
     head = next(r for r in rows
                 if (r["coll"], r["p"], r["bytes_per_rank"]) == ("SCAN", 8, 1 << 20))
     return {
-        "name": "k1_fused_comm",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
+        **kernel_ident("k1"),
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": head["ms"],
@@ -503,6 +935,52 @@ def phase_times(torch, device, card, launches):
         "timing": head["timing"],
         "event_ms": head["event_ms"],
     }
+
+
+def phase_times_onchip(torch, card, launches, cases):
+    """K3-K5 rows at the entry shapes; returns their kernels-line entries,
+    each from its kernel's headline row."""
+    rows = []
+    for case in cases:
+        big = case.nbytes >= (64 << 20) or case.flops >= 1e10
+        iters = 10 if big else 100
+        name = KERNELS[case.key][3]
+        dev = {
+            "ms": device_ms(torch, case.call, iters, name=name),
+            "plain_ms": device_ms(torch, case.plain, max(3, iters // 5)),
+            "library_ms": (device_ms(torch, case.library, iters)
+                           if case.library else None),
+        }
+        event = {"ms": time_ms(torch, case.call, iters)}
+        timing = "profiler" if dev["ms"] is not None else "events"
+        if timing == "events":
+            dev = {"ms": event["ms"],
+                   "plain_ms": time_ms(torch, case.plain, max(3, iters // 5)),
+                   "library_ms": (time_ms(torch, case.library, iters)
+                                  if case.library else None)}
+        bound_ms, bound_by = case.bound(card)
+        got = case.call()
+        want = case.plain()
+        torch.cuda.synchronize()
+        err = assert_match(torch, got, want, *case.tol, f"times {case.label}")
+        del got, want
+        row = {"kernel": case.key, "call": case.label, "head": case.head,
+               **dev, "timing": timing,
+               "event_ms": event["ms"], "bound_ms": bound_ms,
+               "bound_by": bound_by, "max_abs_err": err,
+               "launches_in_entry": launches[case.key]}
+        rows.append(row)
+        emit({"phase": "times", **row})
+    torch.cuda.empty_cache()
+    head = {row["kernel"]: row for row in rows if row["head"]}
+    return [
+        {**kernel_ident(key), "launches": launches[key],
+         **{f: head[key][f] for f in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "timing", "event_ms")},
+         "shape": head[key]["call"]}
+        for key in ("k3", "k4", "k5")
+    ]
 
 
 def main() -> int:
@@ -520,10 +998,14 @@ def main() -> int:
     t0 = time.perf_counter()
     card, smi = phase_device(torch)
     phase_kernel(torch, device)
+    phase_onchip(torch, device)
     launches = phase_main(torch, device)
+    entry_launches, cases = phase_entry(torch, device)
+    phase_baseline(torch, device)
     k1 = phase_times(torch, device, card, launches)
+    onchip = phase_times_onchip(torch, card, entry_launches, cases)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
-    emit({"kernels": [k1]})
+    emit({"kernels": [k1, *onchip]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

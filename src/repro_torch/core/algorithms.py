@@ -92,22 +92,37 @@ class SimBackend(Backend):
     Missing in-edges deliver zeros. A contiguous shift (every doubling round,
     every structural EXSCAN shift) is one slice copy; any other permutation
     is one gather/scatter over index tensors. Both give identical values.
+
+    The index tensors are made once per permutation and kept on the backend:
+    a later call with the same permutation copies nothing from the host, so
+    a schedule run once can then be captured into a CUDA graph.
     """
 
     def __init__(self, p: int, device: "torch.device | str"):
         self.p = int(p)
         self.device = resolve_device(device)
+        self._indices = {}
 
     def rank(self):
         return torch.arange(self.p, dtype=torch.int32, device=self.device)
+
+    def _index_tensors(self, perm: Perm) -> Tuple[torch.Tensor, torch.Tensor]:
+        key = tuple(map(tuple, perm))
+        got = self._indices.get(key)
+        if got is None:
+            got = (
+                torch.tensor([s for s, _ in perm], device=self.device),
+                torch.tensor([t for _, t in perm], device=self.device),
+            )
+            self._indices[key] = got
+        return got
 
     def permute(self, tree: PyTree, perm: Perm) -> PyTree:
         perm = list(perm)
         p = self.p
         d = as_contiguous_shift(perm, p)
         if d is None and perm:
-            src = torch.tensor([s for s, _ in perm], device=self.device)
-            dst = torch.tensor([t for _, t in perm], device=self.device)
+            src, dst = self._index_tensors(perm)
 
         def shuffle(a):
             out = torch.zeros_like(a)

@@ -1,3 +1,15 @@
 """Hand-written CUDA kernels of the PyTorch port (counterpart of
 ``repro.kernels``). Kernels build on first use (``_build``); importing this
-package builds nothing."""
+package builds nothing.
+
+The public entry points, as the reference exports them: ``prefix_scan``
+(K3), ``ssd_scan`` (K4) and ``flash_attention`` (K5), from
+:mod:`repro_torch.kernels.ops`. K1, the fused collective, is reached through
+the offload engine (:mod:`repro_torch.kernels.fused_collective`)."""
+
+from repro_torch.kernels.ops import flash_attention, prefix_scan, ssd_scan
+
+#: every CUDA source of the package, as ``_build.build_all`` takes them
+SOURCES = ("fused_collective", "prefix_scan", "ssd_scan", "flash_attention")
+
+__all__ = ["SOURCES", "flash_attention", "prefix_scan", "ssd_scan"]

@@ -31,6 +31,9 @@ NVCC_FLAGS: Tuple[str, ...] = (
     # must round like the plain version (the sources also use __fmul_rn /
     # __fadd_rn, this guards any expression they miss)
     "-fmad=false",
+    # a __device__ function called from host code compiles to a stub that
+    # exits the process; refuse it at build time
+    "-Werror", "cross-execution-space-call",
     "-shared",
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",

@@ -1,0 +1,100 @@
+"""Public wrappers over the on-chip kernels (port of ``repro.kernels.ops``).
+
+The device of the input decides what runs: a CPU tensor takes the plain
+PyTorch version (:mod:`repro_torch.kernels.ref`), a CUDA tensor launches the
+hand-written CUDA kernel (K3 :mod:`~repro_torch.kernels.prefix_scan`, K4
+:mod:`~repro_torch.kernels.ssd_scan`, K5
+:mod:`~repro_torch.kernels.flash_attention`) or raises. There is no fallback
+from one to the other.
+
+Signatures and layouts are the reference's. The wrappers flatten to the
+kernels' 2-D / 3-D forms and reshape back. Differences:
+
+* ``force_pallas`` is gone (the device decides);
+* ``block_rows`` / ``block_len`` / ``block_time`` / ``block_q`` /
+  ``block_kv`` are accepted and ignored: the CUDA kernels choose their own
+  tiles, and nothing is padded (each kernel masks its ragged edge);
+* the exclusive shift of ``prefix_scan`` happens inside K3 on the card;
+* ``ssd_scan`` starts K4's recurrence from ``h0`` instead of folding it in
+  afterwards through a multiplicative prefix scan (one pass instead of
+  three; the same function up to rounding).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import prefix_scan as _scan
+from repro_torch.kernels import ssd_scan as _ssd
+
+
+def prefix_scan(
+    x: torch.Tensor,
+    *,
+    op: str = "add",
+    exclusive: bool = False,
+    block_rows: int = 256,
+    block_len: int = 512,
+) -> torch.Tensor:
+    """Prefix scan along the last axis of an arbitrary-rank tensor.
+
+    ``block_rows`` / ``block_len`` are accepted for the reference's
+    signature and ignored.
+    """
+    del block_rows, block_len
+    if x.ndim == 0:
+        raise ValueError("prefix_scan needs at least one axis")
+    flat = x.reshape(-1, x.shape[-1])
+    return _scan.scan_rows(flat, op=op, exclusive=exclusive).reshape(x.shape)
+
+
+def ssd_scan(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+    *,
+    block_rows: int = 256,
+    block_time: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Diagonal recurrence h_t = a_t h_{t-1} + b_t along axis -2 of (..., T, D).
+
+    Returns (h, h_last) with h: (..., T, D), h_last: (..., D).
+    ``block_rows`` / ``block_time`` are accepted for the reference's
+    signature and ignored.
+    """
+    del block_rows, block_time
+    if a.ndim < 2 or a.shape != b.shape:
+        raise ValueError(
+            f"expected matching (..., T, D) shapes, got {tuple(a.shape)} "
+            f"{tuple(b.shape)}"
+        )
+    shape = b.shape
+    T, D = shape[-2], shape[-1]
+    h0_3 = None if h0 is None else h0.reshape(-1, D)
+    h = _ssd.ssd_rows(a.reshape(-1, T, D), b.reshape(-1, T, D), h0_3)
+    h = h.reshape(shape)
+    return h, h[..., -1, :]
+
+
+def flash_attention(
+    q: torch.Tensor,      # (BH, Sq, D)
+    k: torch.Tensor,      # (BH, Skv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    block_q: int = 128,
+    block_kv: int = 128,
+) -> torch.Tensor:
+    """Flash attention over flattened (batch*heads, seq, head_dim) operands.
+
+    ``block_q`` / ``block_kv`` are accepted for the reference's signature
+    and ignored.
+    """
+    del block_q, block_kv
+    return _flash.attention(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset)

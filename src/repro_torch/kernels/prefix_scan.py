@@ -1,0 +1,101 @@
+"""K3, the on-chip block scan: inclusive or exclusive add / max / mul prefix
+scan along the last axis of a 2-D ``(R, L)`` tensor (PyTorch/CUDA counterpart
+of ``repro.kernels.prefix_scan``).
+
+The paper offloads the inter-node scan to the NIC; this is the intra-node
+half. :func:`scan_rows` is the wrapper: a CPU tensor takes the plain version
+(:func:`repro_torch.kernels.ref.ref_prefix_scan`), a CUDA tensor launches
+``csrc/prefix_scan.cu`` (one block a row, the carry in a register across the
+row's column tiles, the exclusive shift done in the kernel) or raises.
+:data:`launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import ref_prefix_scan, scan_identity
+
+#: kernel launches since import (the main path's proof that it ran K3)
+launches = 0
+
+_OP_CODES = {"add": 0, "max": 1, "mul": 2}
+_DTYPE_CODES = {
+    torch.int32: 0,
+    torch.float32: 1,
+    torch.bfloat16: 2,
+    torch.float16: 3,
+    torch.int8: 4,
+}
+#: elements a thread scans per tile (``ITEMS`` in the source)
+_ITEMS = 4
+_MAX_THREADS = 256
+
+
+def block_threads(length: int) -> int:
+    """Threads a block: enough for one tile to cover a short row, a power of
+    two in [32, 256]."""
+    need = -(-length // _ITEMS)
+    threads = 32
+    while threads < need and threads < _MAX_THREADS:
+        threads *= 2
+    return threads
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load_library("prefix_scan")
+    fn = lib.k3_prefix_scan
+    fn.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_double,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(x: torch.Tensor, op: str, exclusive: bool) -> torch.Tensor:
+    global launches
+    if op not in _OP_CODES:
+        raise ValueError(f"unknown op {op!r}")
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"the scan kernel takes {sorted(map(str, _DTYPE_CODES))}; got {x.dtype}"
+        )
+    x = x.contiguous()
+    R, L = x.shape
+    y = torch.empty_like(x)
+    if R == 0 or L == 0:
+        return y
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.k3_prefix_scan(
+            _OP_CODES[op], _DTYPE_CODES[x.dtype], x.data_ptr(), y.data_ptr(),
+            R, L, int(exclusive), float(scan_identity(op, x.dtype)),
+            block_threads(L), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"prefix scan kernel launch failed (code {rc}) for op={op} "
+            f"dtype={x.dtype} shape={(R, L)}"
+        )
+    launches += 1
+    return y
+
+
+def scan_rows(
+    x: torch.Tensor, *, op: str = "add", exclusive: bool = False
+) -> torch.Tensor:
+    """Scan every row of a 2-D tensor: the plain version for a CPU tensor,
+    the CUDA kernel for a CUDA tensor (no fallback between the two)."""
+    if x.ndim != 2:
+        raise ValueError(f"expected 2D (rows, length), got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return ref_prefix_scan(x, op, exclusive=exclusive)
+    if x.device.type != "cuda":
+        raise ValueError(f"no scan kernel for device {x.device}")
+    return _launch(x, op, exclusive)
