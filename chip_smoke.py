@@ -29,16 +29,29 @@ non-zero without printing a result:
               attention and a decode step. The launch counts of K3, K4 and K5
               are zeroed right before and read right after; each result is
               held against its plain version.
-6. baseline — the paper's comparison (Figs. 4-5) at p = 8, float32 SUM:
+6. spmd     — the per-rank path: K2 (the per-rank collective kernel, peer
+              puts and signal flags) through ``get_backend("pallas").lower(
+              plan, op, axis_names=("i",))`` under the port's ``shard_map``
+              on co-resident meshes of 8 and 16 ranks on the card: SCAN and
+              EXSCAN, ALLREDUCE on every wire dtype and SSD, BARRIER and the
+              fused scan+total plan, 4 B - 1 MiB per rank plus a 25 MiB
+              ALLREDUCE, each dispatched twice and held bitwise against K1
+              and within K1's tolerance against K2's plain version and
+              ``lower_spmd``. K2's launch count is zeroed right before and
+              read right after. Then the engine in driver mode (a mesh
+              passed to ``offload``) for the five CollTypes and a planned
+              (2, 4) SCAN, bitwise against sim mode.
+7. baseline — the paper's comparison (Figs. 4-5) at p = 8, float32 SUM:
               host-stepped ``host_scan`` (a dispatch and a sync per hop)
               against the whole schedule as one CUDA graph replay, and K1
               through the engine for hillis_steele; host_scan == sim_scan
               bitwise.
-7. times    — every kernel, its plain version and one PyTorch library call
+8. times    — every kernel, its plain version and one PyTorch library call
               at the main and entry shapes: device time from
               ``torch.profiler`` and the per-call time with CUDA events
               (host overhead included), beside the least time the card's
-              memory bandwidth or peak rate allows.
+              memory bandwidth or peak rate allows; and the engine's
+              driver-mode dispatch latency beside sim mode's.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is the result object.
@@ -78,6 +91,8 @@ CSRC = "src/repro_torch/kernels/csrc"
 KERNELS = {
     "k1": ("k1_fused_comm", "fused_collective",
            "src/repro/kernels/pallas_collective.py:362", "k1_kernel"),
+    "k2": ("k2_spmd_comm", "spmd_collective",
+           "src/repro/kernels/pallas_collective.py:180", "k2_kernel"),
     "k3": ("k3_prefix_scan", "prefix_scan",
            "src/repro/kernels/prefix_scan.py:45", "k3_scan_kernel"),
     "k4": ("k4_ssd_scan", "ssd_scan",
@@ -110,6 +125,7 @@ def kernel_modules():
     entry-point functions under the K3-K5 module names)."""
     return {
         "k1": importlib.import_module("repro_torch.kernels.fused_collective"),
+        "k2": importlib.import_module("repro_torch.kernels.spmd_collective"),
         "k3": importlib.import_module("repro_torch.kernels.prefix_scan"),
         "k4": importlib.import_module("repro_torch.kernels.ssd_scan"),
         "k5": importlib.import_module("repro_torch.kernels.flash_attention"),
@@ -807,6 +823,293 @@ def phase_baseline(torch, device):
           "rows": rows, "host_scan_equals_sim_scan": "bitwise", "ok": True})
 
 
+# ---------------------------------------------------------------------------
+# K2: the per-rank collective kernel, through the registry under shard_map
+# ---------------------------------------------------------------------------
+
+SPMD_PS = (8, 16)
+WIRE_DTYPES = ("int32", "float32", "bfloat16", "float16", "int8")
+
+
+def spmd_plans(torch, p):
+    """(label, plan, op name, dtype, bytes per rank) of the spmd phase: the
+    cases of repro/testing/pallas_check.py over the osu sizes, ALLREDUCE on
+    every wire dtype, and a 25 MiB ALLREDUCE at p = 8."""
+    import dataclasses
+
+    from repro_torch.offload.planner import PhaseKind, PlanPhase, build_plan
+
+    hs = ("hillis_steele",)
+    cases = []
+    for nb in MAIN_SIZES:
+        for coll in ("SCAN", "EXSCAN"):
+            for dtype in (torch.float32, torch.int32):
+                cases.append((f"{coll} sum", build_plan(
+                    coll, (p,), "sum", nb, level_algorithms=hs),
+                    "sum", dtype, nb))
+        for opname in ("sum", "max", "min", "prod"):
+            for name in WIRE_DTYPES:
+                cases.append((f"ALLREDUCE {opname}", build_plan(
+                    "ALLREDUCE", (p,), opname, nb), opname,
+                    getattr(torch, name), nb))
+        cases.append(("ALLREDUCE ssd", build_plan("ALLREDUCE", (p,), "ssd", nb),
+                      "ssd", torch.float32, nb))
+        for inclusive in (True, False):
+            # pallas_check's hand-fused FUSED_SCAN_TOTAL plan, both outputs
+            base = build_plan("SCAN" if inclusive else "EXSCAN", (p,), "sum",
+                              nb, level_algorithms=hs)
+            phase = PlanPhase(PhaseKind.FUSED_SCAN_TOTAL, 0, "fused_doubling",
+                              inclusive=inclusive, src=("x",), dst="y",
+                              dst2="t")
+            for result in ("y", "t"):
+                cases.append((
+                    f"FUSED {'inc' if inclusive else 'exc'} {result}",
+                    dataclasses.replace(base, phases=(phase,), result=result),
+                    "sum", torch.float32, nb))
+    cases.append(("BARRIER", build_plan("BARRIER", (p,), "max", 4), "max",
+                  torch.float32, 4))
+    if p == 8:
+        cases.append(("ALLREDUCE sum", build_plan(
+            "ALLREDUCE", (p,), "sum", ALLREDUCE_BIG), "sum", torch.float32,
+            ALLREDUCE_BIG))
+    return cases
+
+
+def spmd_plain(torch, plan, p, op):
+    """K2's plain version of a one-comm-phase plan, per rank."""
+    from repro_torch import compat
+    from repro_torch.core.operators import MAX
+    from repro_torch.kernels.spmd_collective import comm_phase_spmd_plain
+    from repro_torch.offload.planner import PhaseKind
+
+    (ph,) = plan.phases
+    phase_op = MAX if ph.kind == PhaseKind.BARRIER else op
+
+    def run(x):
+        if x is None:  # the barrier's fence token, as the lowering makes it
+            x = compat.mesh_of("i").ranks.rank_ones(torch.float32)
+        out = comm_phase_spmd_plain(ph.kind, p, "i", phase_op, x,
+                                    inclusive=ph.inclusive)
+        if ph.kind == PhaseKind.FUSED_SCAN_TOTAL:
+            return out[0] if plan.result == "y" else out[1]
+        return out
+
+    return run
+
+
+def phase_spmd(torch, device):
+    """K2 through ``get_backend("pallas").lower(plan, op, axis_names=("i",))``
+    under the port's shard_map on co-resident meshes of 8 and 16 ranks, held
+    against its plain version, K1 and lower_spmd; then the engine in driver
+    mode against sim mode."""
+    import numpy as np
+
+    from repro_torch import OffloadEngine
+    from repro_torch.compat import Mesh, shard_map
+    from repro_torch.core.operators import get_operator
+    from repro_torch.kernels import fused_collective as fc
+    from repro_torch.kernels import spmd_collective as k2
+    from repro_torch.offload import backends
+    from repro_torch.offload.planner import lower_spmd
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    pallas = backends.get_backend("pallas")
+    runs = []
+    for p in SPMD_PS:
+        mesh = Mesh((p,), ("i",), device=device)
+        for label, plan, opname, dtype, nb in spmd_plans(torch, p):
+            ok, reason = pallas.capabilities(plan, ("i",))
+            if not ok:
+                raise AssertionError(f"{label}: K2 refuses the plan ({reason})")
+            x = None
+            if plan.coll.name != "BARRIER":
+                n = max(1, nb // torch.empty((), dtype=dtype).element_size())
+                x = make_input(torch, gen, opname, dtype, (p, n), device)
+            lowered = pallas.lower(plan, opname, axis_names=("i",))
+            if x is None:
+                run = shard_map(lambda f=lowered: f(None), mesh, (), "i")
+            else:
+                run = shard_map(lowered, mesh, ("i",), "i")
+            runs.append((p, mesh, label, plan, opname, dtype, nb, x, run))
+    torch.cuda.synchronize()
+
+    # K2's path: counts zeroed just before, read just after
+    k2.launches = 0
+    outs = []
+    for *_, x, run in runs:
+        args = () if x is None else (x,)
+        first = run(*args)
+        again = run(*args)  # a second dispatch: new epoch, same flags
+        outs.append((first, again))
+    torch.cuda.synchronize()
+    launches = k2.launches
+    if launches != 2 * len(runs):
+        raise AssertionError(
+            f"K2 launched {launches} times for {2 * len(runs)} dispatches of "
+            "one-comm-phase plans")
+
+    worst = {}
+    checked = 0
+    for (p, mesh, label, plan, opname, dtype, nb, x, run), (first, again) in \
+            zip(runs, outs):
+        op = get_operator(opname)
+        args = () if x is None else (x,)
+        spec = ((), "i") if x is None else (("i",), "i")
+
+        def per_rank(f):
+            return shard_map(
+                (lambda: f(None)) if x is None else f, mesh, *spec)(*args)
+
+        plain = per_rank(spmd_plain(torch, plan, p, op))
+        spmd = per_rank(lower_spmd(plan, ("i",), op))
+        k1 = fc.lower_fused(plan, op, device=device)(x)
+        torch.cuda.synchronize()
+        what = f"spmd p={p} {label} {dtype_name(dtype)} {nb}B"
+        rtol, atol = tolerance(torch, opname, dtype)
+        assert_match(torch, again, first, 0.0, 0.0, what + " (again)")
+        assert_match(torch, first, k1, 0.0, 0.0, what + " vs K1")
+        err = max(assert_match(torch, first, plain, rtol, atol, what + " vs plain"),
+                  assert_match(torch, first, spmd, rtol, atol, what + " vs lower_spmd"))
+        key = f"{opname}:{dtype_name(dtype)}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        for leaf in leaves_of(first):
+            if leaf.is_floating_point() and not bool(torch.isfinite(leaf).all()):
+                raise AssertionError(f"{what}: non-finite output")
+        if label == "SCAN sum" and dtype == torch.float32 and nb == 1 << 10:
+            xs = x.double().cpu().numpy()
+            np.testing.assert_allclose(first.double().cpu().numpy(),
+                                       np.cumsum(xs, 0), rtol=1e-5, atol=1e-4,
+                                       err_msg=what)
+        if label == "BARRIER" and not bool((first == 1).all()):
+            raise AssertionError(f"{what}: barrier token is not 1")
+        checked += 1
+    del runs, outs
+
+    # the engine in driver mode on the card, against sim mode
+    eng = OffloadEngine()
+    driver = []
+    for p in SPMD_PS:
+        mesh = Mesh((p,), ("i",), device=device)
+        for coll in ("SCAN", "EXSCAN", "REDUCE", "ALLREDUCE", "BARRIER"):
+            desc = eng.make_descriptor(coll, p=p, payload_bytes=16 << 10)
+            driver.append((coll, desc, mesh, "i"))
+    mesh = Mesh((2, 4), ("a", "b"), device=device)
+    desc = eng.make_descriptor("SCAN", axes=(2, 4), payload_bytes=16 << 10)
+    driver.append(("SCAN (2,4) planned", desc, mesh, ("a", "b")))
+    for coll, desc, mesh, axis in driver:
+        x = None
+        if desc.coll_type.name != "BARRIER":
+            x = torch.randn((desc.comm_size, 4096), generator=gen, device=device)
+        got = eng.offload(desc, x, axis_name=axis, mesh=mesh)
+        want = eng.offload(desc, x)
+        assert_match(torch, got, want, 0.0, 0.0,
+                     f"driver {coll} p={desc.comm_size}")
+    snap = eng.telemetry.snapshot()
+    emit({"phase": "spmd", "ranks": list(SPMD_PS), "cases": checked,
+          "k2_launches": launches, "dispatches": 2 * checked,
+          "launches_per_dispatch": launches / (2 * checked),
+          "max_abs_err_vs_plain_by_op": worst,
+          "driver_cases": len(driver), "driver_dispatches": snap["dispatches"],
+          "ok": True})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_times_spmd(torch, device, card, launches):
+    """K2 at SCAN float32 SUM, p = 8, 1 MiB per rank, beside K1, its plain
+    version and torch.cumsum; then the engine's driver-mode dispatch latency
+    beside sim mode's at p = 8 over the osu sizes."""
+    from statistics import median
+
+    from repro_torch import OffloadEngine
+    from repro_torch.compat import Mesh, shard_map
+    from repro_torch.core.operators import SUM
+    from repro_torch.kernels import fused_collective as fc
+    from repro_torch.kernels import spmd_collective as k2
+    from repro_torch.offload import backends
+    from repro_torch.offload.planner import PhaseKind, build_plan
+
+    p, nb = 8, 1 << 20
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    x = torch.randn((p, nb // 4), generator=gen, device=device)
+    mesh = Mesh((p,), ("i",), device=device)
+    plan = build_plan("SCAN", (p,), "sum", nb, level_algorithms=("hillis_steele",))
+    kernel = shard_map(backends.get_backend("pallas").lower(
+        plan, "sum", axis_names=("i",)), mesh, ("i",), "i")
+    plain = shard_map(spmd_plain(torch, plan, p, SUM), mesh, ("i",), "i")
+    k1 = lambda: fc.comm_phase(PhaseKind.SCAN, p, SUM, x)  # noqa: E731
+    library = lambda: torch.cumsum(x, 0)  # noqa: E731
+    err = assert_match(torch, kernel(x), plain(x), 0.0, 0.0, "times K2")
+    before = k2.launches
+    for _ in range(10):
+        kernel(x)
+    per_dispatch = (k2.launches - before) / 10
+    iters = 200
+    dev = {
+        "ms": device_ms(torch, lambda: kernel(x), iters, name="k2_kernel"),
+        "k1_ms": device_ms(torch, k1, iters, name="k1_kernel"),
+        "plain_ms": device_ms(torch, lambda: plain(x), 20),
+        "library_ms": device_ms(torch, library, iters),
+    }
+    event = {
+        "ms": time_ms(torch, lambda: kernel(x), iters),
+        "k1_ms": time_ms(torch, k1, iters),
+        "plain_ms": time_ms(torch, lambda: plain(x), 20),
+        "library_ms": time_ms(torch, library, iters),
+    }
+    # as in phase_times: one source for every field, so a field whose two
+    # traces held no device time stays null under "profiler"
+    timing = "profiler" if dev["ms"] is not None else "events"
+    times = dev if timing == "profiler" else event
+    bound_ms = 2 * x.numel() * x.element_size() / mem_bandwidth(card) * 1e3
+    row = {"coll": "SCAN", "p": p, "bytes_per_rank": nb, **times,
+           "timing": timing, "event_ms": event["ms"],
+           "k1_event_ms": event["k1_ms"], "plain_event_ms": event["plain_ms"],
+           "library_event_ms": event["library_ms"],
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "launches_per_dispatch": per_dispatch, "max_abs_err": err}
+    emit({"phase": "times_spmd", **row})
+
+    eng = OffloadEngine()
+    rows = []
+    for size in MAIN_SIZES:
+        desc = eng.make_descriptor("SCAN", p=p, payload_bytes=size)
+        xs = torch.randn((p, size // 4), generator=gen, device=device)
+        lat = {}
+        for mode, kw in (("sim", {}), ("driver", {"axis_name": "i", "mesh": mesh}),
+                         ("driver2", {"axis_name": "i", "mesh": mesh}),
+                         ("sim2", {})):
+            # sim, driver, driver, sim: two turns each within this run
+            got = []
+            for _ in range(23):
+                eng.offload(desc, xs, **kw)
+                got.append(eng.telemetry.last_latency_s * 1e6)
+            lat[mode] = median(got[3:])
+        rows.append({"bytes_per_rank": size, "algorithm": desc.algo_type,
+                     "sim_us": [lat["sim"], lat["sim2"]],
+                     "driver_us": [lat["driver"], lat["driver2"]]})
+    emit({"phase": "times_dispatch", "p": p, "coll": "SCAN", "op": "sum",
+          "dtype": "float32",
+          "timing": "host clock around offload bracketed by synchronize; "
+                    "median of 20 after 3, two turns each",
+          "rows": rows})
+    return {
+        **kernel_ident("k2"),
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": row["library_ms"],
+        "timing": timing,
+        "event_ms": event["ms"],
+        "k1_ms": row["k1_ms"],
+    }
+
+
 def time_ms(torch, fn, iters):
     for _ in range(3):
         fn()
@@ -824,24 +1127,28 @@ def time_ms(torch, fn, iters):
 def device_ms(torch, fn, iters, name=None):
     """Device time per call from ``torch.profiler`` (CUPTI): the kernels
     whose name contains ``name``, or every device activity when ``name`` is
-    None. None when the trace holds no device time."""
+    None. A trace that holds no device time is taken once more (CUPTI now
+    and then returns an empty one); None when the second is empty too."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        t = getattr(evt, "device_time_total", None)
-        if t is None:
-            t = getattr(evt, "cuda_time_total", 0.0)
-        if name is None or name in evt.key:
-            total_us += t
-    return total_us / iters / 1e3 if total_us > 0 else None
+    for _attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for evt in prof.key_averages():
+            t = getattr(evt, "device_time_total", None)
+            if t is None:
+                t = getattr(evt, "cuda_time_total", 0.0)
+            if name is None or name in evt.key:
+                total_us += t
+        if total_us > 0:
+            return total_us / iters / 1e3
+    return None
 
 
 def kernel_ident(key):
@@ -1001,11 +1308,13 @@ def main() -> int:
     phase_onchip(torch, device)
     launches = phase_main(torch, device)
     entry_launches, cases = phase_entry(torch, device)
+    spmd_launches = phase_spmd(torch, device)
     phase_baseline(torch, device)
     k1 = phase_times(torch, device, card, launches)
+    k2 = phase_times_spmd(torch, device, card, spmd_launches)
     onchip = phase_times_onchip(torch, card, entry_launches, cases)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
-    emit({"kernels": [k1, *onchip]})
+    emit({"kernels": [k1, k2, *onchip]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

@@ -4,10 +4,14 @@
 Each algorithm from the paper is a *schedule*: a fixed sequence of
 (permutation, combine) steps. On the NetFPGA these were hardware state machines
 selected by the offload packet's ``algo_type`` field; here they are pure
-functions over an abstract :class:`Backend`. This slice ports the
-single-device simulator (:class:`SimBackend`), where every pytree leaf
-carries a leading rank axis of size ``p`` and a permute is a row shuffle with
-zero fill on rows that receive nothing.
+functions over an abstract :class:`Backend`, so the identical schedule runs
+
+  * per rank inside the port's ``shard_map`` (:class:`SpmdBackend`, over the
+    named axes of :mod:`repro_torch.compat`: co-resident ranks on one device,
+    or one rank per ``torch.distributed`` process), or
+  * on the single-device simulator (:class:`SimBackend`), where every pytree
+    leaf carries a leading rank axis of size ``p`` and a permute is a row
+    shuffle with zero fill on rows that receive nothing.
 
 All schedules carry ``(value, valid)`` pairs: a missing in-edge delivers
 zeros, so an arriving ``valid == 0`` marks "no message", which makes every
@@ -60,6 +64,61 @@ class Backend:
 
     def permute(self, tree: PyTree, perm: Perm) -> PyTree:  # pragma: no cover
         raise NotImplementedError
+
+
+def split_multicast(perm: Perm) -> List[Perm]:
+    """Split a one-to-many permutation into unique-source sub-permutations.
+
+    A per-rank permute (``lax.ppermute`` in the reference, one send per rank
+    here) takes unique sources AND destinations, so the paper's NIC-style
+    multicast (one payload, many receivers) is decomposed: the i-th
+    destination of each source lands in sub-permutation i. Each destination
+    appears once overall, so with zero fill the receiver-side merge is a
+    plain sum.
+    """
+    buckets: List[Perm] = []
+    seen: dict = {}
+    for src, dst in perm:
+        i = seen.get(src, 0)
+        seen[src] = i + 1
+        while len(buckets) <= i:
+            buckets.append([])
+        buckets[i].append((src, dst))
+    return buckets
+
+
+class SpmdBackend(Backend):
+    """Runs per rank inside :func:`repro_torch.compat.shard_map`; a permute
+    is one exchange over the named axis's rank group (a row gather for
+    co-resident ranks, ``batch_isend_irecv`` between processes)."""
+
+    def __init__(self, axis_name: str, axis_size: "int | None" = None):
+        from repro_torch import compat
+
+        self.axis_name = axis_name
+        if axis_size is None:
+            axis_size = compat.axis_size(axis_name)
+        self.p = int(axis_size)
+
+    def rank(self):
+        from repro_torch import compat
+
+        return compat.axis_index(self.axis_name)
+
+    def permute(self, tree: PyTree, perm: Perm) -> PyTree:
+        from repro_torch import compat
+
+        if not perm:
+            return tree_map(torch.zeros_like, tree)
+        ranks = compat.mesh_of(self.axis_name).ranks
+        parts = [
+            ranks.ppermute(tree, self.axis_name, sp)
+            for sp in split_multicast(list(perm))
+        ]
+        out = parts[0]
+        for part in parts[1:]:
+            out = tree_map(torch.add, out, part)
+        return out
 
 
 def as_contiguous_shift(perm: Perm, p: int) -> Optional[int]:

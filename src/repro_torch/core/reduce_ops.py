@@ -3,8 +3,9 @@ port of ``repro.core.reduce_ops``): MPI_Reduce / MPI_Allreduce /
 MPI_Barrier, built from the identical backend abstraction — a reduce is a
 scan whose result is read at the root; a barrier is a one-token allreduce.
 
-This slice ports the backend-generic schedules and the single-device
-``sim_*`` entry points.
+Every schedule is written against the abstract backend, so the same code
+runs per rank inside :func:`repro_torch.compat.shard_map` (``dist_*``) and on
+the single-device simulator (``sim_*``).
 """
 
 from __future__ import annotations
@@ -85,6 +86,36 @@ def barrier_schedule(
     r = backend.rank()
     token = torch.ones(r.shape, dtype=torch.float32, device=r.device)
     return allreduce_schedule(backend, token, MAX, algorithm=algorithm)
+
+
+# ---------------------------------------------------------------------------
+# SPMD entry points (per rank, inside shard_map)
+# ---------------------------------------------------------------------------
+
+
+def dist_reduce(
+    x: PyTree, op: "AssocOp | str", axis_name: str, *, root: int = 0,
+    algorithm: str = "binomial_tree",
+) -> PyTree:
+    op = get_operator(op)
+    backend = alg.SpmdBackend(axis_name)
+    return reduce_schedule(backend, x, op, root=root, algorithm=algorithm)
+
+
+def dist_allreduce(
+    x: PyTree, op: "AssocOp | str", axis_name: str, *,
+    algorithm: str = "recursive_doubling",
+) -> PyTree:
+    op = get_operator(op)
+    backend = alg.SpmdBackend(axis_name)
+    return allreduce_schedule(backend, x, op, algorithm=algorithm)
+
+
+def dist_barrier(
+    axis_name: str, *, algorithm: str = "recursive_doubling"
+) -> torch.Tensor:
+    backend = alg.SpmdBackend(axis_name)
+    return barrier_schedule(backend, algorithm=algorithm)
 
 
 # ---------------------------------------------------------------------------

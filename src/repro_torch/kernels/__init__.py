@@ -5,11 +5,14 @@ package builds nothing.
 The public entry points, as the reference exports them: ``prefix_scan``
 (K3), ``ssd_scan`` (K4) and ``flash_attention`` (K5), from
 :mod:`repro_torch.kernels.ops`. K1, the fused collective, is reached through
-the offload engine (:mod:`repro_torch.kernels.fused_collective`)."""
+the offload engine (:mod:`repro_torch.kernels.fused_collective`), and K2, its
+per-rank form, through the engine's spmd and driver modes
+(:mod:`repro_torch.kernels.spmd_collective`)."""
 
 from repro_torch.kernels.ops import flash_attention, prefix_scan, ssd_scan
 
 #: every CUDA source of the package, as ``_build.build_all`` takes them
-SOURCES = ("fused_collective", "prefix_scan", "ssd_scan", "flash_attention")
+SOURCES = ("fused_collective", "spmd_collective", "prefix_scan", "ssd_scan",
+           "flash_attention")
 
 __all__ = ["SOURCES", "flash_attention", "prefix_scan", "ssd_scan"]

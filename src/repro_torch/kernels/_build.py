@@ -58,9 +58,12 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    # the digest covers the shared headers too: an edited header rebuilds
+    # every source
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha1(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(parts) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -19,11 +19,13 @@ Three layers, as for every kernel of the port:
   raises too). :data:`launches` counts kernel launches.
 * :func:`lower_fused` — the plan lowering the registry's fused backend
   (registered under the wire name ``"pallas"``) returns, the counterpart of
-  ``lower_pallas`` without ``axis_names``.
+  ``lower_pallas``: without ``axis_names`` over stacked leaves with one K1
+  launch per comm phase; with them, per rank inside
+  :func:`repro_torch.compat.shard_map` with one K2 launch per comm phase
+  (:mod:`repro_torch.kernels.spmd_collective`, the reference's spmd form).
 
 :func:`supports_plan` gives the capability envelope with the reference's
-reason tokens; the per-rank multi-GPU form (the reference's spmd kernel)
-is not part of this module yet.
+reason tokens.
 """
 
 from __future__ import annotations
@@ -39,7 +41,12 @@ from repro_torch.core.operators import MAX, AssocOp, get_operator
 from repro_torch.core.packet import CollType
 from repro_torch.core.reduce_ops import allreduce_schedule, reduce_schedule
 from repro_torch.core.scan_collective import sim_scan
-from repro_torch.core.trees import resolve_device, tree_flatten, tree_unflatten
+from repro_torch.core.trees import (
+    resolve_device,
+    tree_flatten,
+    tree_leaves,
+    tree_unflatten,
+)
 from repro_torch.offload.planner import (
     CollectivePlan,
     PhaseKind,
@@ -86,6 +93,8 @@ _DTYPE_CODES = {
     torch.float16: 3,
     torch.int8: 4,
 }
+#: leaf pointers per stream the kernels' C interfaces take
+MAX_LEAVES = 3
 #: the kernel keeps each thread's column in shared memory up to this many
 #: bytes per block (no opt-in attribute needed); beyond, global scratch
 _SMEM_LIMIT = 48 * 1024
@@ -283,14 +292,17 @@ def _unbroadcast(out: torch.Tensor, shape: torch.Size) -> torch.Tensor:
     return out[idx]
 
 
-def _launch(
-    kind: PhaseKind, p: int, op: AssocOp, leaves: List[torch.Tensor],
-    inclusive: bool,
-) -> Tuple[List[torch.Tensor], Optional[List[torch.Tensor]]]:
-    global launches
+def _stage(
+    kind: PhaseKind, p: int, op: AssocOp, leaves: List[torch.Tensor], who: str,
+):
+    """Check one launch's leaves (a combine the collective kernels implement,
+    one wire dtype and device, a leading axis of ``p`` ranks) and lay them
+    out as contiguous ``(p, M)`` rows. Returns ``(op_code, rows, outputs,
+    totals, back)``: empty outputs (``totals`` only for FUSED_SCAN_TOTAL,
+    else None), and ``back`` to give results the leaves' own shapes."""
     entry = _KERNEL_OPS.get(op.combine)
     if entry is None:
-        raise ValueError(f"the fused kernel has no combine for op {op.name!r}")
+        raise ValueError(f"the {who} has no combine for op {op.name!r}")
     op_code, n_leaves = entry
     if n_leaves != len(leaves):
         raise ValueError(
@@ -299,17 +311,16 @@ def _launch(
     dtype = leaves[0].dtype
     device = leaves[0].device
     if any(l.dtype != dtype or l.device != device for l in leaves):
-        raise ValueError("fused kernel leaves must share one dtype and device")
+        raise ValueError(f"{who} leaves must share one dtype and device")
     if dtype not in _DTYPE_CODES:
         raise ValueError(
-            f"the fused kernel takes {sorted(map(str, _DTYPE_CODES))}; "
-            f"got {dtype}"
+            f"the {who} takes {sorted(map(str, _DTYPE_CODES))}; got {dtype}"
         )
     if n_leaves > 1 and not dtype.is_floating_point:
         raise ValueError(f"op {op.name!r} needs a floating dtype; got {dtype}")
     if any(l.ndim < 1 or l.shape[0] != p for l in leaves):
         raise ValueError(
-            f"fused kernel leaves need a leading rank axis of {p}; got "
+            f"{who} leaves need a leading rank axis of {p}; got "
             f"{[tuple(l.shape) for l in leaves]}"
         )
     shapes = [l.shape for l in leaves]
@@ -317,13 +328,55 @@ def _launch(
         leaves = list(torch.broadcast_tensors(*leaves))
     full = leaves[0].shape
     flat = [l.reshape(p, -1).contiguous() for l in leaves]
-    M = flat[0].shape[1]
-    fused = kind == PhaseKind.FUSED_SCAN_TOTAL
     ys = [torch.empty_like(f) for f in flat]
+    fused = kind == PhaseKind.FUSED_SCAN_TOTAL
     ts = [torch.empty_like(f) for f in flat] if fused else None
+
+    def back(outs: List[torch.Tensor]) -> List[torch.Tensor]:
+        return [
+            _unbroadcast(o.reshape(full), s) for o, s in zip(outs, shapes)
+        ]
+
+    return op_code, flat, ys, ts, back
+
+
+def _pointers(ts_: Optional[List[torch.Tensor]]) -> list:
+    """Up to three leaf pointers, the unused ones null."""
+    got = [t.data_ptr() for t in ts_] if ts_ is not None else []
+    return got + [None] * (MAX_LEAVES - len(got))
+
+
+def _dispatch(kind: PhaseKind, op: AssocOp, tree: PyTree, launch):
+    """Run ``launch(leaves) -> (outputs, totals)`` once, or once a leaf for
+    an elementwise op over a multi-leaf payload (its leaves are
+    independent); returns a tree, or ``(scan, total)`` for
+    FUSED_SCAN_TOTAL."""
+    leaves, spec = tree_flatten(tree)
+    entry = _KERNEL_OPS.get(op.combine)
+    if entry is not None and entry[1] == 1 and len(leaves) > 1:
+        groups = [[leaf] for leaf in leaves]
+    else:
+        groups = [leaves]
+    outs = [launch(group) for group in groups]
+    ys = [y for got, _ in outs for y in got]
+    if kind != PhaseKind.FUSED_SCAN_TOTAL:
+        return tree_unflatten(ys, spec)
+    ts = [t for _, got in outs for t in got]
+    return tree_unflatten(ys, spec), tree_unflatten(ts, spec)
+
+
+def _launch(
+    kind: PhaseKind, p: int, op: AssocOp, leaves: List[torch.Tensor],
+    inclusive: bool,
+) -> Tuple[List[torch.Tensor], Optional[List[torch.Tensor]]]:
+    global launches
+    op_code, flat, ys, ts, back = _stage(kind, p, op, leaves, "fused kernel")
+    n_leaves = len(flat)
+    dtype, device = flat[0].dtype, flat[0].device
+    M = flat[0].shape[1]
     if M > 0:
         lib = _library()
-        streams = 2 if fused else 1
+        streams = 2 if ts is not None else 1
         item = flat[0].element_size()
         scratch = None
         for block in _BLOCKS:
@@ -336,16 +389,12 @@ def _launch(
                 streams * n_leaves * p * M, dtype=dtype, device=device
             )
 
-        def ptrs(ts_: Optional[List[torch.Tensor]]):
-            got = [t.data_ptr() for t in ts_] if ts_ is not None else []
-            return got + [None] * (3 - len(got))
-
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = lib.k1_fused_comm(
                 _KIND_CODES[kind], op_code, _DTYPE_CODES[dtype],
                 int(inclusive), p, M,
-                *ptrs(flat), *ptrs(ys), *ptrs(ts),
+                *_pointers(flat), *_pointers(ys), *_pointers(ts),
                 None if scratch is None else scratch.data_ptr(),
                 block, smem, stream,
             )
@@ -355,13 +404,7 @@ def _launch(
                 f"{kind.name} op={op.name} dtype={dtype} p={p} M={M}"
             )
         launches += 1
-
-    def back(outs: List[torch.Tensor]) -> List[torch.Tensor]:
-        return [
-            _unbroadcast(o.reshape(full), s) for o, s in zip(outs, shapes)
-        ]
-
-    return back(ys), (back(ts) if fused else None)
+    return back(ys), (back(ts) if ts is not None else None)
 
 
 def comm_phase(
@@ -370,7 +413,7 @@ def comm_phase(
 ):
     """Run one comm phase: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (no fallback between the two)."""
-    leaves, spec = tree_flatten(tree)
+    leaves = tree_leaves(tree)
     if not leaves or leaves[0].device.type == "cpu":
         return comm_phase_plain(kind, p, op, tree, inclusive=inclusive)
     if leaves[0].device.type != "cuda":
@@ -379,23 +422,9 @@ def comm_phase(
         raise ValueError(f"{kind.name} is not a fused comm phase")
     if _KIND_CODES[kind] == 2:
         _check_pow2(kind, p)
-    entry = _KERNEL_OPS.get(op.combine)
-    if entry is not None and entry[1] == 1 and len(leaves) > 1:
-        # elementwise op over a multi-leaf payload: leaves are independent,
-        # one launch each
-        outs = [
-            _launch(kind, p, op, [leaf], inclusive) for leaf in leaves
-        ]
-        ys = [y[0] for y, _ in outs]
-        if kind != PhaseKind.FUSED_SCAN_TOTAL:
-            return tree_unflatten(ys, spec)
-        return tree_unflatten(ys, spec), tree_unflatten(
-            [t[0] for _, t in outs], spec
-        )
-    ys, ts = _launch(kind, p, op, leaves, inclusive)
-    if ts is None:
-        return tree_unflatten(ys, spec)
-    return tree_unflatten(ys, spec), tree_unflatten(ts, spec)
+    return _dispatch(
+        kind, op, tree, lambda group: _launch(kind, p, op, group, inclusive)
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -431,28 +460,79 @@ def _sim_fallback_fn(ph, op, backend) -> Callable[[PyTree], PyTree]:
     raise ValueError(f"unknown phase kind {ph.kind!r}")
 
 
+def _lower_fused_spmd(plan: CollectivePlan, op: AssocOp, axis_names):
+    """The per-rank phase loop (``_lower_pallas_spmd``): COMBINE with the
+    rank-0 guard, IDENTITY, and one K2 launch per comm phase."""
+    from repro_torch import compat
+    from repro_torch.kernels.spmd_collective import comm_phase_spmd
+
+    name = axis_names[plan.order[0]]
+    p = plan.sizes[0]
+
+    def run(x: Optional[PyTree] = None) -> PyTree:
+        regs = {}
+        if plan.coll == CollType.BARRIER:
+            # the fence token, threaded through the phases per rank
+            regs["x"] = compat.mesh_of(name).ranks.rank_ones(torch.float32)
+        else:
+            regs["x"] = x
+        for ph in plan.phases:
+            if ph.kind == PhaseKind.COMBINE:
+                merged = op.combine(regs[ph.src[0]], regs[ph.src[1]])
+                if ph.guard_levels:
+                    keep = None
+                    for _ in ph.guard_levels:
+                        z = compat.axis_index(name) == 0
+                        keep = z if keep is None else keep & z
+                    merged = alg._bwhere(keep, regs[ph.src[1]], merged)
+                regs[ph.dst] = merged
+                continue
+            if ph.kind == PhaseKind.IDENTITY:
+                regs[ph.dst] = op.identity_like(regs[ph.src[0]])
+                continue
+            phase_op = MAX if ph.kind == PhaseKind.BARRIER else op
+            out = comm_phase_spmd(
+                ph.kind, p, name, phase_op, regs[ph.src[0]],
+                inclusive=ph.inclusive,
+            )
+            if ph.kind == PhaseKind.FUSED_SCAN_TOTAL:
+                regs[ph.dst], regs[ph.dst2] = out
+            else:
+                regs[ph.dst] = out
+        return regs[plan.result]
+
+    return run
+
+
 def lower_fused(
     plan: CollectivePlan,
     op: "AssocOp | str | None" = None,
     *,
     device: "torch.device | str" = "cuda",
+    axis_names: Optional[Sequence[str]] = None,
 ):
-    """Compile a supported plan to a function over flat stacked ``(p, ...)``
-    leaves on ``device``, with one fused launch per comm phase.
+    """Compile a supported plan to fused-kernel schedules.
 
-    Same calling convention as :func:`repro_torch.offload.planner.lower_sim`
-    and the same values (same arithmetic, operand order and zero fills).
-    Raises ``ValueError`` for plans outside :func:`supports_plan`; callers
-    wanting a soft fallback go through the lowering registry
-    (:mod:`repro_torch.offload.backends`).
+    Without ``axis_names``: a function over flat stacked ``(p, ...)`` leaves
+    on ``device``, one K1 launch per comm phase, with the calling convention
+    of :func:`repro_torch.offload.planner.lower_sim`. With them: a function
+    run per rank inside :func:`repro_torch.compat.shard_map` over one named
+    axis (whose mesh decides the device), one K2 launch per comm phase, with
+    the calling convention of :func:`~repro_torch.offload.planner.lower_spmd`.
+    Both give the op-per-round lowerings' values (same arithmetic, operand
+    order and zero fills). Raises ``ValueError`` for plans outside
+    :func:`supports_plan`; callers wanting a soft fallback go through the
+    lowering registry (:mod:`repro_torch.offload.backends`).
     """
     op = get_operator(plan.op_name if op is None else op)
-    ok, reason = supports_plan(plan)
+    ok, reason = supports_plan(plan, axis_names)
     if not ok:
         raise ValueError(
             f"plan not supported by the fused backend ({reason}); "
             f"use the registry default lowering"
         )
+    if axis_names is not None:
+        return _lower_fused_spmd(plan, op, tuple(axis_names))
     device = resolve_device(device)
     logical = plan.logical_sizes
     k = len(logical)

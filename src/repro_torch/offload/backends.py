@@ -3,20 +3,22 @@ how a ``CollectivePlan`` becomes code.
 
 A :class:`LoweringBackend` exposes:
 
-  name           registry key ("sim", "pallas")
+  name           registry key ("sim", "spmd", "pallas")
   capabilities   can this backend lower this plan? Returns ``(ok, reason)``
                  with a stable reason token so the engine can attribute
                  fallbacks in telemetry.
-  lower          plan -> schedule callable over stacked ``(p, ...)`` leaves
-                 on a device
+  lower          plan -> schedule callable: over stacked ``(p, ...)`` leaves
+                 on a device, or, given ``axis_names``, per rank inside
+                 :func:`repro_torch.compat.shard_map`
   fingerprint    extra cache-key fields. Empty for the mode default, so
                  default cache keys stay byte-identical to the reference's;
                  a non-default backend contributes ``(("backend", name),)``.
 
 The fused-kernel backend is registered under ``"pallas"``: that is the
 backend's *wire* name (``packet._WIRE_BACKENDS``), so descriptor words stay
-byte-identical to the reference's; here it lowers to the CUDA kernel of
-:mod:`repro_torch.kernels.fused_collective`.
+byte-identical to the reference's; here it lowers to the CUDA kernels of
+:mod:`repro_torch.kernels.fused_collective` (K1 over stacked ranks) and
+:mod:`repro_torch.kernels.spmd_collective` (K2 per rank).
 
 ``resolve`` is the single soft-fallback point: ask for a backend by name,
 get the default back (plus the capability-miss reason) when the plan is
@@ -34,7 +36,12 @@ import torch
 from repro_torch.core.operators import AssocOp, get_operator
 from repro_torch.core.scan_collective import _payload_bytes
 from repro_torch.core.trees import tree_device, tree_map
-from repro_torch.offload.planner import CollectivePlan, build_plan, lower_sim
+from repro_torch.offload.planner import (
+    CollectivePlan,
+    build_plan,
+    lower_sim,
+    lower_spmd,
+)
 
 PyTree = Any
 
@@ -63,8 +70,11 @@ class LoweringBackend(Protocol):
         op: "AssocOp | str | None" = None,
         *,
         device: "torch.device | str" = "cuda",
+        axis_names: Optional[Sequence[str]] = None,
     ) -> Callable:
-        """Compile ``plan`` to a schedule callable on ``device``."""
+        """Compile ``plan`` to a schedule callable: over stacked leaves on
+        ``device``, or per rank under ``axis_names`` (whose mesh then
+        decides the device)."""
         ...
 
     def fingerprint(self) -> Tuple[Tuple[str, str], ...]:
@@ -84,8 +94,28 @@ class SimLowering:
             return False, "needs_stacked_input"
         return True, ""
 
-    def lower(self, plan, op=None, *, device="cuda"):
+    def lower(self, plan, op=None, *, device="cuda", axis_names=None):
+        if axis_names is not None:
+            raise ValueError("the sim lowering takes stacked input, no axes")
         return lower_sim(plan, op, device=device)
+
+    def fingerprint(self):
+        return ()
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmdLowering:
+    """Op-per-round per-rank schedule inside shard_map (spmd/driver modes)."""
+
+    name: str = "spmd"
+
+    def capabilities(self, plan, axis_names=None):
+        if axis_names is None:
+            return False, "needs_axis_names"
+        return True, ""
+
+    def lower(self, plan, op=None, *, device="cuda", axis_names=None):
+        return lower_spmd(plan, axis_names, op)
 
     def fingerprint(self):
         return ()
@@ -103,10 +133,12 @@ class FusedLowering:
 
         return fused_collective.supports_plan(plan, axis_names)
 
-    def lower(self, plan, op=None, *, device="cuda"):
+    def lower(self, plan, op=None, *, device="cuda", axis_names=None):
         from repro_torch.kernels import fused_collective
 
-        return fused_collective.lower_fused(plan, op, device=device)
+        return fused_collective.lower_fused(
+            plan, op, device=device, axis_names=axis_names
+        )
 
     def fingerprint(self):
         return (("backend", self.name),)
@@ -128,8 +160,8 @@ def default_backend_name(
     axis_names: Optional[Sequence[str]] = None,
 ) -> str:
     """The backend a mode resolves to when none is named: the op-per-round
-    interpreter for stacked inputs, the per-rank schedule under named axes
-    (not registered yet in the port)."""
+    interpreter for stacked inputs, the per-rank schedule under named
+    axes."""
     return "sim" if axis_names is None else "spmd"
 
 
@@ -174,6 +206,7 @@ def resolve(
 
 
 register_backend(SimLowering())
+register_backend(SpmdLowering())
 register_backend(FusedLowering())
 
 
@@ -196,6 +229,38 @@ def _two_level_plan(op, sizes, payload_bytes, *, inclusive, algorithms):
         order=(0, 1),
         level_algorithms=algorithms,
     )
+
+
+def dist_hierarchical_scan(
+    x: PyTree,
+    op: "AssocOp | str",
+    inner_axis: str,
+    outer_axis: str,
+    *,
+    inclusive: bool = True,
+    inner_algorithm: str = "auto",
+    outer_algorithm: str = "auto",
+) -> PyTree:
+    """Two-level scan across ``outer_axis``-major ``inner_axis``-minor order.
+
+    Call inside :func:`repro_torch.compat.shard_map` over a mesh with both
+    axes. Equivalent to a flat scan over the p_outer * p_inner ranks in
+    (outer, inner) order, but each phase's schedule only ever spans one
+    axis.
+    """
+    from repro_torch import compat
+
+    op = get_operator(op)
+    axis_names = (outer_axis, inner_axis)
+    plan = _two_level_plan(
+        op,
+        (compat.axis_size(outer_axis), compat.axis_size(inner_axis)),
+        compat.per_rank_bytes(x, inner_axis),
+        inclusive=inclusive,
+        algorithms=(outer_algorithm, inner_algorithm),
+    )
+    backend, _ = resolve(DEFAULT_BACKEND, plan, axis_names)
+    return backend.lower(plan, op, axis_names=axis_names)(x)
 
 
 def sim_hierarchical_scan(

@@ -1,5 +1,5 @@
 """The offload engine: one descriptor in, one result out (PyTorch port of
-``repro.offload.engine``, sim mode).
+``repro.offload.engine``).
 
 This is the software analogue of the paper's NIC firmware loop. The NetFPGA
 accepted a single self-describing packet (Fig. 1) and ran the whole collective
@@ -10,9 +10,18 @@ caches it keyed by the descriptor words, and dispatches every later identical
 request straight from the cache, with hit/miss/latency telemetry standing in
 for the paper's 8 ns on-NIC timer.
 
-Payloads are stacked ``(p, ...)`` tensors on the engine's device (a GPU
-unless the caller asks for the CPU); PyTorch runs eagerly, so a "compiled"
-schedule is the lowered callable. Descriptors carrying a multi-axis topology
+Three dispatch modes, as in the reference:
+
+* **sim** (no ``axis_name``): the payload is a stacked ``(p, ...)`` tensor on
+  the engine's device (a GPU unless the caller asks for the CPU);
+* **spmd** (``axis_name``, no ``mesh``): the call runs per rank inside the
+  caller's :func:`repro_torch.compat.shard_map`, untimed;
+* **driver** (``axis_name`` and ``mesh``): the stacked payload goes in, and
+  the engine wraps the per-rank schedule in its own ``shard_map`` over the
+  mesh.
+
+PyTorch runs eagerly, so a "compiled" schedule is the lowered callable.
+Descriptors carrying a multi-axis topology
 (``axes`` + ``split``) go through the collective planner, the pass pipeline
 when the ``optimized`` flag is set, and the lowering-backend registry — where
 ``backend="pallas"`` selects the fused CUDA kernel — and cache under a
@@ -43,12 +52,14 @@ from repro_torch.core.reduce_ops import (
     barrier_schedule,
     reduce_schedule,
 )
-from repro_torch.core.scan_collective import sim_scan
+from repro_torch.core.scan_collective import dist_exscan, dist_scan, sim_scan
 from repro_torch.core.selector import select_algorithm
 from repro_torch.core.trees import resolve_device, tree_leaves
 from repro_torch.offload import planner
 
 PyTree = Any
+#: one mesh axis name, or one per descriptor axis (planned requests)
+AxisSpec = Optional["str | Sequence[str]"]
 
 #: the coll kind each CollType tunes/selects against
 COLL_KIND = {
@@ -76,10 +87,6 @@ _WIRE_DTYPES = {
     WireDType.FLOAT16: torch.float16,
     WireDType.INT8: torch.int8,
 }
-
-#: the only dispatch mode this port has so far (the reference's mode tag
-#: for stacked single-device payloads; it is part of every cache key)
-_SIM_MODE = "<sim>"
 
 
 def wire_op_name(op: WireOp) -> str:
@@ -225,7 +232,8 @@ class OffloadEngine:
 
     ``device`` defaults to ``"cuda"``; on a machine without CUDA that raises
     rather than quietly running on the CPU, so CPU runs pass
-    ``device="cpu"``. Payloads must already live on the engine's device.
+    ``device="cpu"``. Sim-mode payloads must already live on the engine's
+    device; spmd and driver modes run on their mesh's device.
     """
 
     def __init__(self, device: "torch.device | str" = "cuda") -> None:
@@ -261,9 +269,37 @@ class OffloadEngine:
         return CollectiveDescriptor.decode(np.asarray(descriptor))
 
     @staticmethod
-    def _cache_key(desc: CollectiveDescriptor) -> bytes:
+    def _mode_tag(axis_name: AxisSpec, mesh: Any = None) -> str:
+        """The reference's mode string (part of every cache key): ``<sim>``,
+        the axis name(s), or ``driver[shape@device-hash]|names``."""
+        if axis_name is None:
+            mode = "<sim>"
+        elif isinstance(axis_name, str):
+            mode = axis_name
+        else:
+            mode = "|".join(axis_name)
+        if mesh is not None:
+            shape = ",".join(
+                f"{n}={s}" for n, s in zip(mesh.axis_names, mesh.devices.shape)
+            )
+            # rank identity matters: two same-shape meshes over different
+            # (or reordered) ranks must not share a schedule
+            devs = hashlib.blake2s(
+                ",".join(
+                    str(getattr(d, "id", d)) for d in mesh.devices.flat
+                ).encode("utf-8")
+            ).hexdigest()[:12]
+            mode = f"driver[{shape}@{devs}]|{mode}"
+        return mode
+
+    @classmethod
+    def _cache_key(
+        cls, desc: CollectiveDescriptor, axis_name: AxisSpec = None,
+        mesh: Any = None,
+    ) -> bytes:
         normalized = desc.normalized()
-        return normalized.encode().tobytes() + b"|" + _SIM_MODE.encode("utf-8")
+        mode = cls._mode_tag(axis_name, mesh)
+        return normalized.encode().tobytes() + b"|" + mode.encode("utf-8")
 
     def _plan_for(self, desc: CollectiveDescriptor):
         """The (optimized, when flagged) plan a multi-axis descriptor names
@@ -293,18 +329,24 @@ class OffloadEngine:
         return plan, words
 
     def _resolve_backend(
-        self, desc: CollectiveDescriptor, plan
+        self, desc: CollectiveDescriptor, plan, axis_name: AxisSpec = None
     ) -> Tuple[str, Tuple]:
         """Resolve the descriptor's lowering-backend request through the
-        registry for this plan; returns ``(name, fingerprint_fields)``. Soft
-        capability misses fall back to the default and are counted in
-        telemetry exactly once per unique resolution."""
-        memo_key = (desc.backend, plan)
+        registry for this plan and axis binding; returns ``(name,
+        fingerprint_fields)``. Soft capability misses fall back to the mode
+        default and are counted in telemetry exactly once per unique
+        resolution."""
+        names = None
+        if axis_name is not None:
+            names = (
+                (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+            )
+        memo_key = (desc.backend, plan, names)
         cached = self._backend_memo.get(memo_key)
         if cached is None:
             from repro_torch.offload import backends
 
-            backend, reason = backends.resolve(desc.backend, plan)
+            backend, reason = backends.resolve(desc.backend, plan, names)
             if reason:
                 self.telemetry.record_backend_fallback(
                     desc.coll_type.name.lower(), reason
@@ -314,14 +356,28 @@ class OffloadEngine:
         return cached
 
     def _planned_cache_key(
-        self, words: bytes, plan, backend_fields: Tuple = ()
+        self,
+        words: bytes,
+        plan,
+        axis_name: AxisSpec = None,
+        mesh: Any = None,
+        backend_fields: Tuple = (),
     ) -> bytes:
         """Key a planned request on everything its lowering reads — the
-        logical structure and the backend fingerprint. The fields and their
-        digest are the reference's (sim mode binds no axis names), so the
-        keys are byte-identical across the two packages."""
-        names_l = None  # the reference's per-level axis names; none in sim mode
-        digest = self._fp_memo.get((words, backend_fields))
+        logical structure, the physical axis name of each logical level (in
+        spmd/driver modes) and the backend fingerprint. The fields and their
+        digest are the reference's, so the keys are byte-identical across
+        the two packages."""
+        names_l: Optional[Tuple[str, ...]] = None
+        if axis_name is not None:
+            names = (
+                (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+            )
+            if len(names) == len(plan.sizes):
+                names_l = tuple(names[i] for i in plan.order)
+            else:  # malformed; _compile raises with its clear error
+                names_l = names
+        digest = self._fp_memo.get((words, names_l, backend_fields))
         if digest is None:
             fields = (
                 plan.coll.name,
@@ -346,8 +402,9 @@ class OffloadEngine:
             # the default backend contributes no fields
             fields = fields + backend_fields
             digest = hashlib.blake2s(repr(fields).encode("utf-8")).digest()
-            self._fp_memo[(words, backend_fields)] = digest
-        return b"plan|" + digest + b"|" + _SIM_MODE.encode("utf-8")
+            self._fp_memo[(words, names_l, backend_fields)] = digest
+        mode = self._mode_tag(axis_name, mesh)
+        return b"plan|" + digest + b"|" + mode.encode("utf-8")
 
     def make_descriptor(
         self,
@@ -482,34 +539,49 @@ class OffloadEngine:
         self,
         descriptor: "CollectiveDescriptor | np.ndarray",
         x: Optional[PyTree] = None,
+        axis_name: AxisSpec = None,
+        mesh: Any = None,
     ) -> PyTree:
         """Run the collective the descriptor describes; return its result.
 
-        ``x`` is the stacked ``(p, ...)`` pytree of per-rank contributions
-        on the engine's device (leading axis in the plan's *logical* rank
-        order). BARRIER ignores ``x``. The dispatch is timed on the host
-        clock, bracketed by ``torch.cuda.synchronize()`` on a GPU.
+        ``x`` is the per-rank contribution: a stacked ``(p, ...)`` pytree in
+        sim and driver modes (leading axis in the plan's *logical* rank
+        order), this rank's value inside :func:`repro_torch.compat.shard_map`
+        in spmd mode. BARRIER ignores ``x``. For a planned multi-axis
+        descriptor, ``axis_name`` is the tuple of physical mesh-axis names in
+        descriptor ``axes`` order. Passing ``mesh`` (a
+        :class:`repro_torch.compat.Mesh`, with ``axis_name``) selects driver
+        mode: the engine wraps the schedule in its own ``shard_map``. Sim and
+        driver dispatches are timed on the host clock, bracketed by
+        ``torch.cuda.synchronize()`` on a GPU; spmd dispatches run inside
+        the caller's program and are not timed.
         """
         try:
             desc = self._as_descriptor(descriptor)
         except Exception:
             self.telemetry.errors += 1
             raise
+        if axis_name is not None and not isinstance(axis_name, str):
+            axis_name = tuple(axis_name) or None
+        if mesh is not None and axis_name is None:
+            raise ValueError("driver mode (mesh=...) requires axis_name")
         if len(desc.axes) > 1:
             try:
                 plan, words = self._plan_for(desc)
             except Exception:
                 self.telemetry.errors += 1
                 raise
-            _, bfields = self._resolve_backend(desc, plan)
-            key = self._planned_cache_key(words, plan, backend_fields=bfields)
+            _, bfields = self._resolve_backend(desc, plan, axis_name)
+            key = self._planned_cache_key(
+                words, plan, axis_name, mesh, backend_fields=bfields
+            )
             self._plans.setdefault(key, plan)
         else:
-            key = self._cache_key(desc)
+            key = self._cache_key(desc, axis_name, mesh)
         sched = self._cache.get(key)
         if sched is None:
             try:
-                sched = self._compile(desc, key)
+                sched = self._compile(desc, key, axis_name, mesh)
             except Exception:
                 self.telemetry.errors += 1
                 raise
@@ -520,16 +592,25 @@ class OffloadEngine:
         else:
             self.telemetry.hits += 1
 
-        if desc.coll_type != CollType.BARRIER:
-            self._validate_payload(desc, x)
+        timed = axis_name is None or mesh is not None
+        device = self.device if mesh is None else mesh.device
+        if desc.coll_type == CollType.BARRIER:
+            if mesh is not None and x is None:
+                x = torch.zeros((desc.comm_size,), device=device)
+        elif timed:
+            self._validate_payload(desc, x, device)
 
-        on_gpu = self.device.type == "cuda"
+        if not timed:
+            out = sched.fn(x)
+            self.telemetry.record_dispatch(sched.coll, None)
+            return out
+        on_gpu = device.type == "cuda"
         if on_gpu:
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         out = sched.fn(x)
         if on_gpu:
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(device)
         latency = time.perf_counter() - t0
         self.telemetry.record_dispatch(sched.coll, latency)
         return out
@@ -550,7 +631,9 @@ class OffloadEngine:
 
     # -- internals ---------------------------------------------------------
 
-    def _validate_payload(self, desc: CollectiveDescriptor, x: PyTree) -> None:
+    def _validate_payload(
+        self, desc: CollectiveDescriptor, x: PyTree, device: torch.device
+    ) -> None:
         if x is None:
             raise ValueError(
                 f"{desc.coll_type.name} offload requires a payload"
@@ -561,13 +644,19 @@ class OffloadEngine:
                     "sim-mode payload leaves need a leading rank axis of "
                     f"comm_size={desc.comm_size}; got shape {tuple(leaf.shape)}"
                 )
-            if leaf.device != self.device:
+            if leaf.device != device:
                 raise ValueError(
                     f"payload lives on {leaf.device} but the engine runs on "
-                    f"{self.device}; move it explicitly"
+                    f"{device}; move it explicitly"
                 )
 
-    def _compile(self, desc: CollectiveDescriptor, key: bytes) -> CompiledSchedule:
+    def _compile(
+        self,
+        desc: CollectiveDescriptor,
+        key: bytes,
+        axis_name: AxisSpec = None,
+        mesh: Any = None,
+    ) -> CompiledSchedule:
         op = get_operator(wire_op_name(desc.operation))
         algo = desc.algo_type
         coll = desc.coll_type
@@ -579,7 +668,9 @@ class OffloadEngine:
             )
 
         if len(desc.axes) > 1:
-            fn, bname = self._build_planned(desc, op, plan=self._plans.get(key))
+            fn, bname = self._build_planned(
+                desc, op, axis_name, plan=self._plans.get(key)
+            )
             algo = f"plan{desc.split}:{algo}"
             if desc.optimized:
                 algo = f"opt:{algo}"
@@ -588,8 +679,20 @@ class OffloadEngine:
             if bname is not None:
                 # only non-default backends tag the schedule
                 algo = f"{bname}:{algo}"
+        elif axis_name is not None:
+            one = axis_name
+            if not isinstance(one, str):
+                if len(one) != 1:
+                    raise ValueError(
+                        f"descriptor has no multi-axis topology; pass one "
+                        f"mesh axis name, not {one!r}"
+                    )
+                (one,) = one
+            fn = self._build_spmd(coll, op, algo, one, root)
         else:
             fn = self._build_sim(coll, op, algo, p, root, self.device)
+        if mesh is not None:
+            fn = self._build_driver(desc, fn, axis_name, mesh)
         return CompiledSchedule(
             key=key,
             coll=coll.name.lower(),
@@ -599,12 +702,50 @@ class OffloadEngine:
             fn=fn,
         )
 
+    @staticmethod
+    def _build_driver(
+        desc: CollectiveDescriptor,
+        inner: Callable[[PyTree], PyTree],
+        axis_name: AxisSpec,
+        mesh: Any,
+    ) -> Callable[[PyTree], PyTree]:
+        """Wrap a per-rank schedule in the engine's own ``shard_map``.
+
+        The payload is the sim-mode stacked ``(p, ...)`` contract with the
+        leading axis in *logical* rank order; the spec splits it over the
+        physical axes in the descriptor split's logical order (first name
+        major), so rank r of the plan sees row r.
+        """
+        from repro_torch.compat import shard_map
+
+        names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+        missing = [n for n in names if n not in mesh.axis_names]
+        if missing:
+            raise ValueError(
+                f"axes {missing} not in mesh axes {mesh.axis_names}"
+            )
+        sizes = dict(zip(mesh.axis_names, mesh.shape))
+        expect = desc.axes if len(desc.axes) > 1 else (desc.comm_size,)
+        for n, want in zip(names, expect):
+            if int(sizes[n]) != int(want):
+                raise ValueError(
+                    f"descriptor axis size {want} != mesh axis "
+                    f"{n!r} size {sizes[n]}"
+                )
+        if len(desc.axes) > 1:
+            order = desc.split or tuple(range(len(desc.axes)))
+            names_l = tuple(names[i] for i in order)
+        else:
+            names_l = names
+        return shard_map(inner, mesh, in_specs=(names_l,), out_specs=names_l)
+
     def _build_planned(
-        self, desc: CollectiveDescriptor, op: AssocOp, plan
+        self, desc: CollectiveDescriptor, op: AssocOp, axis_name: AxisSpec,
+        plan,
     ) -> "Tuple[Callable[[PyTree], PyTree], Optional[str]]":
         """Lower a multi-axis descriptor through the lowering-backend
         registry; returns ``(fn, backend_tag)`` where the tag is the
-        resolved backend's name for non-defaults and ``None`` when the
+        resolved backend's name for non-defaults and ``None`` when the mode
         default lowered the plan."""
         from repro_torch.offload import backends
 
@@ -613,10 +754,23 @@ class OffloadEngine:
                 "planned compile without a stashed plan; dispatch through "
                 "offload(), which builds it via _plan_for"
             )
-        bname, _ = self._resolve_backend(desc, plan)
+        if axis_name is not None and (
+            isinstance(axis_name, str) or len(axis_name) != len(desc.axes)
+        ):
+            raise ValueError(
+                f"planned descriptor spans axes {desc.axes}; pass one mesh "
+                f"axis name per axis (got {axis_name!r})"
+            )
+        bname, _ = self._resolve_backend(desc, plan, axis_name)
         backend = backends.get_backend(bname)
-        tag = bname if bname != backends.default_backend_name() else None
-        return backend.lower(plan, op, device=self.device), tag
+        tag = (
+            bname
+            if bname != backends.default_backend_name(axis_name)
+            else None
+        )
+        if axis_name is None:
+            return backend.lower(plan, op, device=self.device), tag
+        return backend.lower(plan, op, axis_names=tuple(axis_name)), tag
 
     @staticmethod
     def _build_sim(
@@ -640,5 +794,27 @@ class OffloadEngine:
         if coll == CollType.BARRIER:
             return lambda _x: barrier_schedule(
                 alg.SimBackend(p, device), algorithm=algo
+            )
+        raise ValueError(f"unknown coll_type {coll!r}")
+
+    @staticmethod
+    def _build_spmd(
+        coll: CollType, op: AssocOp, algo: str, axis_name: str, root: int
+    ) -> Callable[[PyTree], PyTree]:
+        if coll == CollType.SCAN:
+            return lambda x: dist_scan(x, op, axis_name, algorithm=algo)
+        if coll == CollType.EXSCAN:
+            return lambda x: dist_exscan(x, op, axis_name, algorithm=algo)
+        if coll == CollType.REDUCE:
+            return lambda x: reduce_schedule(
+                alg.SpmdBackend(axis_name), x, op, root=root, algorithm=algo
+            )
+        if coll == CollType.ALLREDUCE:
+            return lambda x: allreduce_schedule(
+                alg.SpmdBackend(axis_name), x, op, algorithm=algo
+            )
+        if coll == CollType.BARRIER:
+            return lambda _x: barrier_schedule(
+                alg.SpmdBackend(axis_name), algorithm=algo
             )
         raise ValueError(f"unknown coll_type {coll!r}")

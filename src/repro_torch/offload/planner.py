@@ -14,9 +14,11 @@ in which order, and which schedule runs on each axis.
   * :func:`plan_axis_order` — the tuned split (active tuning table first,
     then the cost model).
   * :func:`lower_sim` — lowers one plan over stacked ``(p, ...)`` tensors on
-    one device. It is the mode-default entry of the lowering-backend
-    registry (:mod:`repro_torch.offload.backends`), which also hosts the
-    fused-kernel lowering (:mod:`repro_torch.kernels.fused_collective`).
+    one device; :func:`lower_spmd` lowers it per rank inside
+    :func:`repro_torch.compat.shard_map`. They are the mode defaults of the
+    lowering-backend registry (:mod:`repro_torch.offload.backends`), which
+    also hosts the fused-kernel lowering
+    (:mod:`repro_torch.kernels.fused_collective`).
 
 The plan IR, costing and split choice are framework-free and identical to
 the reference's: ``describe()`` text matches line for line
@@ -38,7 +40,7 @@ from repro_torch.core import algorithms as alg
 from repro_torch.core.operators import MAX, AssocOp, get_operator
 from repro_torch.core.packet import MAX_AXES, CollType
 from repro_torch.core.reduce_ops import allreduce_schedule, reduce_schedule
-from repro_torch.core.scan_collective import sim_scan
+from repro_torch.core.scan_collective import dist_exscan, dist_scan, sim_scan
 from repro_torch.core.selector import (
     DEFAULT_LINK_MODEL,
     LinkModel,
@@ -735,6 +737,54 @@ def _sim_scan_chunked(
     return alg._bwhere(rank != 0, out, identity)
 
 
+def _spmd_scan_chunked(
+    backend: "alg.SpmdBackend",
+    x: PyTree,
+    op: AssocOp,
+    *,
+    algorithm: str,
+    inclusive: bool,
+    chunks: int,
+) -> PyTree:
+    """Chunked ``dist_scan``/``dist_exscan`` body over one named axis.
+
+    Mirrors those functions exactly (including the exclusive form's
+    *absence* of a final rank-0 mask on the structural path — the shifted
+    identity fill already leaves rank 0 holding the identity). A payload
+    splits only along a per-rank axis: co-resident leaves carry one more
+    leading dim (the stacked ranks) than a process's own.
+    """
+    from repro_torch import compat
+
+    p = backend.p
+    min_ndim = 1 + compat.rank_dims(backend.axis_name)
+    if (
+        p == 1
+        or algorithm not in alg.DOUBLING_ALGORITHMS
+        or not alg.chunkable(x, chunks, min_ndim=min_ndim)
+    ):
+        if inclusive:
+            return dist_scan(x, op, backend.axis_name, algorithm=algorithm)
+        return dist_exscan(x, op, backend.axis_name, algorithm=algorithm)
+    if inclusive:
+        return alg.chunked_scan_schedule(backend, x, op, chunks=chunks)
+    identity = op.identity_like(x)
+    if algorithm == "invertible_doubling" and op.inverse is not None:
+        if not op.commutative:
+            raise ValueError(
+                "inverse-based exscan requires a commutative operator; "
+                f"{op.name!r} is not"
+            )
+        inc = alg.chunked_scan_schedule(backend, x, op, chunks=chunks)
+        ex = op.combine(inc, op.inverse(x))
+        rank = backend.rank()
+        return alg._bwhere(rank == 0, identity, ex)
+    return alg.chunked_scan_schedule(
+        backend, x, op, chunks=chunks, shift_first=True,
+        identity=None if op.zero_identity else identity,
+    )
+
+
 def _chunked_scan_total(
     backend: "alg.Backend",
     tree: PyTree,
@@ -925,5 +975,98 @@ def lower_sim(
                 else:
                     set_reg(ph.dst, out, None)
         return to_flat(get_reg(plan.result, None))
+
+    return run
+
+
+def lower_spmd(
+    plan: CollectivePlan,
+    axis_names: Sequence[str],
+    op: "AssocOp | str | None" = None,
+):
+    """Compile a plan to a function callable per rank inside
+    :func:`repro_torch.compat.shard_map`.
+
+    ``axis_names`` name the *physical* mesh axes in the same order as
+    ``plan.sizes``; the plan's split decides which named axis each logical
+    level runs over. Global rank order is lex over the logical levels —
+    callers lay data out accordingly (outermost logical level varies
+    slowest).
+    """
+    from repro_torch import compat
+
+    op = get_operator(plan.op_name if op is None else op)
+    axis_names = tuple(axis_names)
+    if len(axis_names) != len(plan.sizes):
+        raise ValueError(
+            f"plan spans {len(plan.sizes)} axes; got names {axis_names}"
+        )
+    names_l = tuple(axis_names[i] for i in plan.order)
+    chunks = max(1, int(plan.chunking))
+
+    def run(x: Optional[PyTree]) -> PyTree:
+        regs: Dict[str, PyTree] = {}
+        if plan.coll == CollType.BARRIER:
+            regs["x"] = compat.mesh_of(names_l[0]).ranks.rank_ones(torch.float32)
+        else:
+            regs["x"] = x
+        for ph in plan.phases:
+            if ph.kind == PhaseKind.COMBINE:
+                carry, local = regs[ph.src[0]], regs[ph.src[1]]
+                merged = op.combine(carry, local)
+                cond = None
+                for lv in ph.guard_levels:
+                    z = compat.axis_index(names_l[lv]) == 0
+                    cond = z if cond is None else (cond & z)
+                if cond is not None:
+                    merged = alg._bwhere(cond, local, merged)
+                regs[ph.dst] = merged
+                continue
+            if ph.kind == PhaseKind.IDENTITY:
+                regs[ph.dst] = op.identity_like(regs[ph.src[0]])
+                continue
+            src = regs[ph.src[0]]
+            name = names_l[ph.level]
+            backend = alg.SpmdBackend(name, plan.logical_sizes[ph.level])
+            if ph.kind == PhaseKind.FUSED_SCAN_TOTAL:
+                if chunks > 1:
+                    y, t = _chunked_scan_total(
+                        backend, src, op, inclusive=ph.inclusive,
+                        chunks=chunks, min_ndim=1 + compat.rank_dims(name),
+                    )
+                else:
+                    y, t = alg.scan_total_schedule(
+                        backend, src, op, inclusive=ph.inclusive
+                    )
+                regs[ph.dst] = y
+                regs[ph.dst2] = t
+                continue
+            if ph.kind == PhaseKind.SCAN:
+                if chunks > 1:
+                    out = _spmd_scan_chunked(
+                        backend, src, op, algorithm=ph.algorithm,
+                        inclusive=ph.inclusive, chunks=chunks,
+                    )
+                elif ph.inclusive:
+                    out = dist_scan(src, op, name, algorithm=ph.algorithm)
+                else:
+                    out = dist_exscan(src, op, name, algorithm=ph.algorithm)
+            elif ph.kind == PhaseKind.TOTAL:
+                out = allreduce_schedule(
+                    backend, src, op, algorithm=ph.algorithm
+                )
+            elif ph.kind == PhaseKind.REDUCE:
+                out = reduce_schedule(
+                    backend, src, op, root=ph.root, algorithm=ph.algorithm
+                )
+            elif ph.kind == PhaseKind.BARRIER:
+                # same token-threading rationale as the sim interpreter
+                out = allreduce_schedule(
+                    backend, src, MAX, algorithm=ph.algorithm
+                )
+            else:  # pragma: no cover - exhaustive
+                raise ValueError(f"unknown phase kind {ph.kind!r}")
+            regs[ph.dst] = out
+        return regs[plan.result]
 
     return run

@@ -195,8 +195,10 @@ def test_supports_plan_reason_tokens_identical():
 
 
 def test_registry_resolution_matches_reference():
-    assert t_backends.backend_names() == ("pallas", "sim")
+    assert t_backends.backend_names() == j_backends.backend_names() == (
+        "pallas", "sim", "spmd")
     assert t_backends.get_backend("sim").fingerprint() == ()
+    assert t_backends.get_backend("spmd").fingerprint() == ()
     assert t_backends.get_backend("pallas").fingerprint() == (
         j_backends.get_backend("pallas").fingerprint()
     )

@@ -24,7 +24,10 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
     mods = _modules()
-    assert "repro_torch.kernels.fused_collective" in mods
+    for mod in ("repro_torch.kernels.fused_collective", "repro_torch.compat",
+                "repro_torch.kernels.spmd_collective",
+                "repro_torch.testing.spmd_check"):
+        assert mod in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
