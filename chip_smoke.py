@@ -15,7 +15,9 @@ non-zero without printing a result:
               a rank count large enough for the global-scratch column path.
 3. onchip   — K3 (prefix scan), K4 (SSD scan) and K5 (flash attention)
               through ``repro_torch.kernels.ops`` against their plain versions
-              on the card: ragged, N-d and NaN inputs, every mask of K5.
+              on the card: ragged, N-d and NaN inputs, every mask of K5 on
+              its decode, tensor-core and float32 paths in float32, bf16 and
+              fp16, each call's launches held to ``plan_launch``'s.
 4. main     — the offload path: ``OffloadEngine()`` (on the GPU by default)
               -> ``make_descriptor(..., backend="pallas", chunks=1)`` ->
               ``offload`` for SCAN, EXSCAN, ALLREDUCE and BARRIER at p = 8 and
@@ -27,7 +29,8 @@ non-zero without printing a result:
               scan, OLMoE's expert offsets, memory-bound (8192, 8192) scans,
               Mamba2-130m's SSD recurrence, SmolLM-360M and Gemma3-27B
               attention and a decode step. The launch counts of K3, K4 and K5
-              are zeroed right before and read right after; each result is
+              are zeroed right before and read right after (one a call for
+              K3 and K4, ``plan_launch``'s count for K5); each result is
               held against its plain version.
 6. spmd     — the per-rank path: K2 (the per-rank collective kernel, peer
               puts and signal flags) through ``get_backend("pallas").lower(
@@ -221,6 +224,40 @@ def tolerance(torch, op, dtype):
 # ---------------------------------------------------------------------------
 
 
+_PTXAS_DTYPES = (("f", "float32"), ("13__nv_bfloat16", "bfloat16"),
+                 ("6__half", "float16"))
+
+
+def ptxas_kernels(log: str):
+    """Registers and spill-store bytes of each K5 kernel instantiation, from
+    ptxas's ``-v`` report, keyed as ``name<dtype, D>``."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            key = None
+            mangled = m.group(1)
+            # the kernel's name, then its template arguments (I...E)
+            n = re.search(r"k5_flash_kernel(?:_tc|_decode|_combine)?(?=I)", mangled)
+            if n:
+                ident, rest = n.group(0), mangled[n.end():]
+                dtype = next((name for code, name in _PTXAS_DTYPES
+                              if rest.startswith("I" + code)), "?")
+                d = re.search(r"Li(\d+)E", rest)
+                key = f"{ident}<{dtype}{', ' + d.group(1) if d else ''}>"
+                out[key] = {}
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[key]["spill_store_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_device(torch):
     from repro_torch.kernels import SOURCES, _build
 
@@ -254,6 +291,7 @@ def phase_device(torch):
         "libraries": [str(p.relative_to(REPO)) for p in paths.values()],
         "build_s": round(build_s, 3),
         "ptxas": ptxas,
+        "k5_kernels": ptxas_kernels(_build.build_log("flash_attention")),
     })
     return name, smi
 
@@ -471,9 +509,13 @@ def scan_tolerance(torch, op, dtype):
 # K4: one sequential recurrence against the plain version's doubling scan
 # with h0 folded in after it (float32 state in both; bf16 rounds once)
 SSD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
-# K5: online against full softmax in float32 (TF32 off); bf16 also rounds p
-# to bf16 before the P.V product, as the reference kernel does
-FLASH_TOL = {"float32": (5e-4, 5e-4), "bfloat16": (2e-2, 2e-2)}
+# K5: online against full softmax in float32 (TF32 off); bf16 and fp16 also
+# round p to v's type before the P.V product, as the reference kernel does,
+# and round the output once. fp16 keeps 3 more bits than bf16: p's rounding
+# moves an output by at most 2^-11 max|v| and the output's rounding by 2^-11
+# |o|, about 2e-3 each at |v| = 4, so 1e-2 holds both with room.
+FLASH_TOL = {"float32": (5e-4, 5e-4), "bfloat16": (2e-2, 2e-2),
+             "float16": (1e-2, 1e-2)}
 
 
 def scan_input(torch, gen, op, dtype, shape, device, *, nan=False):
@@ -521,9 +563,10 @@ def phase_onchip(torch, device):
     gen.manual_seed(3)
     worst = {}
 
-    def check(key, got, want, rtol, atol, what, launched):
-        if launched != 1:
-            raise AssertionError(f"{what}: {launched} kernel launches")
+    def check(key, got, want, rtol, atol, what, launched, expected=1):
+        if launched != expected:
+            raise AssertionError(
+                f"{what}: {launched} kernel launches, {expected} planned")
         torch.cuda.synchronize()
         err = assert_match(torch, got, want, rtol, atol, what)
         worst[key] = max(worst.get(key, 0.0), err)
@@ -574,18 +617,39 @@ def phase_onchip(torch, device):
         (1, 1100, 1100, 128, True, 1024, 0),  # window 1024
         (2, 64, 300, 32, False, 16, 100),     # window without causal
         (1, 70, 50, 64, True, 0, -30),        # rows that see no key
+        # each case runs in float32, bf16 and fp16: Sq <= 16 takes the
+        # decode path in every dtype, longer queries the tensor-core path
+        # (bf16, fp16) or the float32 one
+        (2, 1, 300, 128, True, 0, 299),       # decode at D = 128
+        (2, 16, 1000, 32, True, 0, 984),      # the longest decode query
+        (2, 17, 1000, 32, True, 0, 983),      # the shortest prefill query
+        (2, 16, 777, 128, False, 0, 0),       # Skv no multiple of tile or split
+        (2, 17, 777, 128, False, 0, 0),
+        (3, 16, 333, 64, True, 0, 317),
+        (3, 17, 333, 64, True, 0, 316),
+        (3, 4, 2100, 128, True, 1024, 2096),  # decode with a window
+        (2, 3, 700, 64, False, 100, 650),
+        (2, 1, 300, 64, True, 0, 5000),       # decode past Skv
+        (1, 5, 100, 64, True, 0, -3),         # decode rows that see no key
+        (2, 3, 130, 32, False, 8, 400),       # no row sees a key
+        (2, 300, 517, 128, True, 0, -100),    # prefill rows that see no key
+        (1, 40, 50, 32, True, 0, -20),
+        (2, 1000, 1000, 64, True, 0, 0),      # several causal query tiles
+        (2, 200, 333, 32, True, 0, 100),
     ]
     for BH, Sq, Skv, D, causal, window, q_offset in flash_cases:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             q, k, v = qkv_input(torch, gen, dtype, BH, Sq, Skv, D, device)
             kw = dict(causal=causal, window=window, q_offset=q_offset)
+            plan = mods["k5"].plan_launch(BH, Sq, Skv, D, dtype, **kw)
             before = mods["k5"].launches
             got = ops.flash_attention(q, k, v, **kw)
             launched = mods["k5"].launches - before
             want = ref.ref_flash_attention(q, k, v, **kw)
             rtol, atol = FLASH_TOL[dtype_name(dtype)]
-            check(f"k5:{dtype_name(dtype)}", got, want, rtol, atol,
-                  f"K5 {dtype} {(BH, Sq, Skv, D)} {kw}", launched)
+            check(f"k5:{plan.path}:{dtype_name(dtype)}", got, want, rtol, atol,
+                  f"K5 {plan.path} {dtype} {(BH, Sq, Skv, D)} {kw}", launched,
+                  plan.launches)
             cases += 1
     emit({
         "phase": "onchip", "cases": cases, "max_abs_err": worst,
@@ -614,10 +678,12 @@ class EntryCase:
     None), its tolerance and the least time the card could take for it."""
 
     def __init__(self, key, label, call, plain, library, tol, nbytes,
-                 flops=0, dtype=None, head=False):
+                 flops=0, dtype=None, head=False, launches=1, path=None):
         self.key, self.label, self.head = key, label, head
         self.call, self.plain, self.library = call, plain, library
         self.tol, self.nbytes, self.flops, self.dtype = tol, nbytes, flops, dtype
+        # kernel launches a call makes, and K5's path (from plan_launch)
+        self.launches, self.path = launches, path
 
     def bound(self, card):
         by_bytes = self.nbytes / mem_bandwidth(card) * 1e3
@@ -685,8 +751,11 @@ def entry_cases(torch, device):
         ))
 
     # attention: (BH, Sq, Skv, D, causal, window, q_offset)
+    k5 = importlib.import_module("repro_torch.kernels.flash_attention")
     for label, dtype, (BH, Sq, Skv, D, causal, window, q_offset) in (
         ("smollm_360m causal (60,2048,64) bf16", torch.bfloat16,
+         (4 * 15, 2048, 2048, 64, True, 0, 0)),
+        ("smollm_360m causal (60,2048,64) fp16", torch.float16,
          (4 * 15, 2048, 2048, 64, True, 0, 0)),
         ("smollm_360m causal (60,2048,64) f32", torch.float32,
          (4 * 15, 2048, 2048, 64, True, 0, 0)),
@@ -710,6 +779,7 @@ def entry_cases(torch, device):
         def library(q4=q[None], k4=k[None], v4=v[None], sdpa=sdpa):
             return F.scaled_dot_product_attention(q4, k4, v4, **sdpa)
 
+        plan = k5.plan_launch(BH, Sq, Skv, D, dtype, **kw)
         cases.append(EntryCase(
             "k5", label,
             lambda q=q, k=k, v=v, kw=kw: ops.flash_attention(q, k, v, **kw),
@@ -718,6 +788,7 @@ def entry_cases(torch, device):
             (2 * q.numel() + 2 * k.numel()) * q.element_size(),
             flops=4 * BH * D * visible_pairs(Sq, Skv, **kw), dtype=dtype,
             head=not cases or cases[-1].key != "k5",
+            launches=plan.launches, path=plan.path,
         ))
     torch.cuda.synchronize()
     return cases
@@ -732,9 +803,12 @@ def phase_entry(torch, device):
     torch.cuda.synchronize()
     launches = {key: mods[key].launches for key in ("k3", "k4", "k5")}
     for key, n in launches.items():
-        want = sum(c.key == key for c in cases)
+        # K3 and K4 launch once a call, K5 as plan_launch planned
+        want = sum(c.launches for c in cases if c.key == key)
+        calls = sum(c.key == key for c in cases)
         if n != want:
-            raise AssertionError(f"{key}: {n} launches for {want} entry calls")
+            raise AssertionError(
+                f"{key}: {n} launches for {calls} entry calls, {want} planned")
     rows = []
     for case, got in zip(cases, outs):
         want = case.plain()
@@ -744,7 +818,8 @@ def phase_entry(torch, device):
             if leaf.is_floating_point() and not bool(torch.isfinite(leaf).all()):
                 raise AssertionError(f"entry {case.label}: non-finite output")
         rows.append({"kernel": case.key, "call": case.label, "max_abs_err": err,
-                     "tol": list(case.tol)})
+                     "tol": list(case.tol), "path": case.path,
+                     "launches": case.launches})
         del want
     del outs
     torch.cuda.empty_cache()
@@ -1274,8 +1349,13 @@ def phase_times_onchip(torch, card, launches, cases):
         row = {"kernel": case.key, "call": case.label, "head": case.head,
                **dev, "timing": timing,
                "event_ms": event["ms"], "bound_ms": bound_ms,
-               "bound_by": bound_by, "max_abs_err": err,
-               "launches_in_entry": launches[case.key]}
+               "bound_by": bound_by, "bound_share": bound_ms / dev["ms"],
+               "max_abs_err": err, "launches_in_entry": launches[case.key],
+               "launches_per_call": case.launches}
+        if case.path is not None:
+            row["path"] = case.path
+        if case.flops:
+            row["tflops"] = case.flops / dev["ms"] / 1e9
         rows.append(row)
         emit({"phase": "times", **row})
     torch.cuda.empty_cache()
