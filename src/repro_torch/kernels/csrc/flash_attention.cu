@@ -16,7 +16,7 @@
 //   that the grid holds at least 2 x 132 blocks where Skv allows. A block
 //   stages 32- or 64-key tiles of its chunk in shared memory with 16-byte
 //   cp.async copies (double-buffered), serves all Sq rows from that one read
-//   on the CUDA cores (compiled for 1, 4 or 16 rows, so a one-row step does
+//   on the CUDA cores (compiled for 1 or 16 rows, so a one-row step does
 //   one row's work), and writes float32 partials (m, l, acc[D]) to a
 //   workspace; the second, small launch rescales them by exp(m_i - M) and
 //   writes o. One chunk (grid already full) writes o directly: one launch.
@@ -67,6 +67,28 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
+
+// Design switches, each 1 (the shipped kernel) unless the build defines it
+// otherwise; repro_torch/testing/k5_ablation.py builds and times each one
+// changed.
+// tc: the two consumer warpgroups take turns to issue their products
+#ifndef K5_TC_TURNS
+#define K5_TC_TURNS 1
+#endif
+// tc: the next tile's S and this tile's P.V stay in flight during the
+// softmax: 0 never, 1 below D = 128, 2 at every head size
+#ifndef K5_TC_PIPE
+#define K5_TC_PIPE 1
+#endif
+// tc: under a window, one head's query tiles run together
+#ifndef K5_TC_BY_HEAD
+#define K5_TC_BY_HEAD 1
+#endif
+// decode: a one-row call runs the kernel compiled for one row (else the one
+// for 16)
+#ifndef K5_DECODE_ROWS1
+#define K5_DECODE_ROWS1 1
+#endif
 
 namespace {
 
@@ -162,8 +184,8 @@ struct SplitParams {
   int nsplit;           // 1: the split kernel writes o itself
 };
 
-// ROWS: the query rows a kernel is compiled for (1, 4 or 16, the smallest
-// that holds Sq), so that a one-row decode step does one row's work
+// ROWS: the query rows a kernel is compiled for (1, or 16 for any Sq up to
+// MAXQ), so that a one-row decode step does one row's work
 template <typename T, int D, int ROWS> struct Cfg {
   static constexpr int ROW_BYTES = D * (int)sizeof(T);
   // keys a staged tile (plan_launch's decode tile)
@@ -886,7 +908,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   // flight during the softmax) needs S, P and O live at once: at D = 128
   // that exceeds the consumers' registers and ptxas serializes the wgmma
   // instead, so D = 128 issues its products one tile at a time.
-  constexpr bool PIPE = D < 128;
+  constexpr bool PIPE = K5_TC_PIPE == 2 || (K5_TC_PIPE == 1 && D < 128);
+  constexpr bool TURNS = K5_TC_TURNS;
   const Params& prm = tp.p;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -901,7 +924,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   // window, where the tiles cost about the same, the tiles of one head run
   // together so that its keys stay in L2
   const int nqt = (int)((prm.Sq + BQ - 1) / BQ), nbh = (int)tp.BH;
-  const bool by_head = prm.window > 0;
+  const bool by_head = K5_TC_BY_HEAD && prm.window > 0;
   const int bh = by_head ? (int)blockIdx.x / nqt : (int)blockIdx.x % nbh;
   const int qt = by_head ? (int)blockIdx.x % nqt : (int)blockIdx.x / nbh;
   const long long q0 = (long long)(nqt - 1 - qt) * BQ;
@@ -1078,11 +1101,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     //   the softmax of tile i + 1. The last tile is peeled, so every branch
     //   issues and waits alike and ptxas can follow the wgmma groups
     //   without serializing them.
-    auto my_turn = [&]() { asm volatile("bar.sync %0, 256;\n" ::"r"(1 + g) : "memory"); };
-    auto their_turn = [&]() {
-      asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - g) : "memory");
+    auto my_turn = [&]() {
+      if constexpr (TURNS) asm volatile("bar.sync %0, 256;\n" ::"r"(1 + g) : "memory");
     };
-    if (g == 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+    auto their_turn = [&]() {
+      if constexpr (TURNS) asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - g) : "memory");
+    };
+    if (TURNS && g == 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
     mbar_wait(bar_q, 0);
     if constexpr (PIPE) {
       my_turn();
@@ -1154,9 +1179,16 @@ __global__ void __launch_bounds__(THREADS, 1)
 // host side
 // ---------------------------------------------------------------------------
 
+// after a launch: its error, and one more launch in *n when there is none
+int launched(int* n) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++*n;
+  return (int)err;
+}
+
 template <typename T, int D>
 int launch_simt(const void* q, const void* k, const void* v, void* o, long long BH,
-                const Params& prm, cudaStream_t s) {
+                const Params& prm, cudaStream_t s, int* n) {
   const int smem = Tile<D>::SMEM_FLOATS * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(k5_flash_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1167,12 +1199,12 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, long long 
   k5_flash_kernel<T, D><<<grid, THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), prm);
-  return (int)cudaGetLastError();
+  return launched(n);
 }
 
 template <typename T, int D, int ROWS>
 int launch_decode_rows(const void* q, const void* k, const void* v, void* o, void* work,
-                       long long BH, const dec::SplitParams& sp, cudaStream_t s) {
+                       long long BH, const dec::SplitParams& sp, cudaStream_t s, int* n) {
   using C = dec::Cfg<T, D, ROWS>;
   if (sp.nsplit < 1 || sp.split_len <= 0 || sp.split_len % C::TK || sp.key_lo < 0 ||
       sp.key_lo % C::TK)
@@ -1186,20 +1218,21 @@ int launch_decode_rows(const void* q, const void* k, const void* v, void* o, voi
   dec::k5_flash_kernel_decode<T, D, ROWS><<<(unsigned)blocks, dec::THREADS, C::SMEM, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(work), sp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || sp.nsplit == 1) return (int)err;
+  const int rc = launched(n);
+  if (rc != 0 || sp.nsplit == 1) return rc;
   dec::k5_flash_kernel_combine<T, D>
       <<<(unsigned)((rows + dec::WARPS - 1) / dec::WARPS), dec::THREADS, 0, s>>>(
           static_cast<const float*>(work), static_cast<T*>(o), rows, sp.p.Sq, sp.nsplit);
-  return (int)cudaGetLastError();
+  return launched(n);
 }
 
 template <typename T, int D>
 int launch_decode(const void* q, const void* k, const void* v, void* o, void* work,
-                  long long BH, const dec::SplitParams& sp, cudaStream_t s) {
-  if (sp.p.Sq == 1) return launch_decode_rows<T, D, 1>(q, k, v, o, work, BH, sp, s);
-  if (sp.p.Sq <= 4) return launch_decode_rows<T, D, 4>(q, k, v, o, work, BH, sp, s);
-  if (sp.p.Sq <= dec::MAXQ) return launch_decode_rows<T, D, dec::MAXQ>(q, k, v, o, work, BH, sp, s);
+                  long long BH, const dec::SplitParams& sp, cudaStream_t s, int* n) {
+  if (K5_DECODE_ROWS1 && sp.p.Sq == 1)
+    return launch_decode_rows<T, D, 1>(q, k, v, o, work, BH, sp, s, n);
+  if (sp.p.Sq <= dec::MAXQ)
+    return launch_decode_rows<T, D, dec::MAXQ>(q, k, v, o, work, BH, sp, s, n);
   return -3;
 }
 
@@ -1243,7 +1276,7 @@ int make_map(CUtensorMap* map, const void* ptr, long long BH, long long S, int r
 
 template <typename T, int D>
 int launch_tc(const void* q, const void* k, const void* v, void* o, long long BH,
-              const Params& prm, cudaStream_t s) {
+              const Params& prm, cudaStream_t s, int* n) {
   using C = tc::Cfg<D>;
   const long long blocks = BH * ((prm.Sq + tc::BQ - 1) / tc::BQ);
   if (blocks > 0x7fffffffLL || prm.Sq > 0x7fffffffLL || prm.Skv > 0x7fffffffLL ||
@@ -1262,19 +1295,19 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, long long BH
   tp.BH = BH;
   tc::k5_flash_kernel_tc<T, D>
       <<<(unsigned)blocks, tc::THREADS, C::SMEM, s>>>(mq, mk, mv, static_cast<T*>(o), tp);
-  return (int)cudaGetLastError();
+  return launched(n);
 }
 
 template <typename T, int D>
 int launch_path(int path, const void* q, const void* k, const void* v, void* o, void* work,
-                long long BH, const dec::SplitParams& sp, cudaStream_t s) {
+                long long BH, const dec::SplitParams& sp, cudaStream_t s, int* n) {
   switch (path) {
     case PATH_SIMT:
-      if constexpr (sizeof(T) == 4) return launch_simt<T, D>(q, k, v, o, BH, sp.p, s);
+      if constexpr (sizeof(T) == 4) return launch_simt<T, D>(q, k, v, o, BH, sp.p, s, n);
       return -1;
-    case PATH_DECODE: return launch_decode<T, D>(q, k, v, o, work, BH, sp, s);
+    case PATH_DECODE: return launch_decode<T, D>(q, k, v, o, work, BH, sp, s, n);
     case PATH_TC:
-      if constexpr (sizeof(T) == 2) return launch_tc<T, D>(q, k, v, o, BH, sp.p, s);
+      if constexpr (sizeof(T) == 2) return launch_tc<T, D>(q, k, v, o, BH, sp.p, s, n);
       return -1;
     default: return -1;
   }
@@ -1282,11 +1315,11 @@ int launch_path(int path, const void* q, const void* k, const void* v, void* o, 
 
 template <typename T>
 int launch(int path, const void* q, const void* k, const void* v, void* o, void* work,
-           long long BH, long long D, const dec::SplitParams& sp, cudaStream_t s) {
+           long long BH, long long D, const dec::SplitParams& sp, cudaStream_t s, int* n) {
   switch (D) {
-    case 32: return launch_path<T, 32>(path, q, k, v, o, work, BH, sp, s);
-    case 64: return launch_path<T, 64>(path, q, k, v, o, work, BH, sp, s);
-    case 128: return launch_path<T, 128>(path, q, k, v, o, work, BH, sp, s);
+    case 32: return launch_path<T, 32>(path, q, k, v, o, work, BH, sp, s, n);
+    case 64: return launch_path<T, 64>(path, q, k, v, o, work, BH, sp, s, n);
+    case 128: return launch_path<T, 128>(path, q, k, v, o, work, BH, sp, s, n);
     default: return -1;
   }
 }
@@ -1301,12 +1334,14 @@ int launch(int path, const void* q, const void* k, const void* v, void* o, void*
 // cudaGetLastError() after the last launch (0 on success), -1 for a dtype,
 // head size or path the kernels do not take, -2 for a grid they cannot
 // launch, -3 for a split they do not take, -4 when the tensor maps cannot be
-// made.
+// made. *launches is set to the number of kernels launched, each counted once
+// cudaGetLastError() has passed its launch.
 extern "C" int k5_flash_attention(int dtype, int path, const void* q, const void* k,
                                   const void* v, void* o, void* work, long long BH, long long Sq,
                                   long long Skv, long long D, int causal, int window,
                                   long long q_offset, float scale, long long key_lo,
-                                  long long split_len, int nsplit, void* stream) {
+                                  long long split_len, int nsplit, void* stream, int* launches) {
+  *launches = 0;
   if (BH <= 0 || Sq <= 0) return 0;
   dec::SplitParams sp;
   sp.p.Sq = Sq;
@@ -1320,9 +1355,10 @@ extern "C" int k5_flash_attention(int dtype, int path, const void* q, const void
   sp.nsplit = nsplit;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case DT_FLOAT32: return launch<float>(path, q, k, v, o, work, BH, D, sp, s);
-    case DT_BFLOAT16: return launch<__nv_bfloat16>(path, q, k, v, o, work, BH, D, sp, s);
-    case DT_FLOAT16: return launch<__half>(path, q, k, v, o, work, BH, D, sp, s);
+    case DT_FLOAT32: return launch<float>(path, q, k, v, o, work, BH, D, sp, s, launches);
+    case DT_BFLOAT16:
+      return launch<__nv_bfloat16>(path, q, k, v, o, work, BH, D, sp, s, launches);
+    case DT_FLOAT16: return launch<__half>(path, q, k, v, o, work, BH, D, sp, s, launches);
     default: return -1;
   }
 }

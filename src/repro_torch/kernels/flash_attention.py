@@ -10,14 +10,14 @@ launches the kernels of ``csrc/flash_attention.cu`` on the path that
 * ``decode`` (``Sq <= DECODE_MAX_SQ``, every dtype): the keys of each head
   are split into chunks so that the grid fills the card; one launch writes
   float32 partials ``(m, l, acc)`` per chunk and a second combines them
-  (one launch when a single chunk suffices). :func:`split_reference` is the
-  plain version of that arithmetic.
+  (one launch when a single chunk suffices).
 * ``tc`` (bfloat16 / float16, longer queries): both products on the tensor
   cores (``wgmma``), K/V tiles brought in by TMA.
 * ``simt`` (float32, longer queries): the products on the CUDA cores in
   float32.
 
-:data:`launches` counts kernel launches.
+:data:`launches` counts the kernel launches that the C entry point reports
+having made (each counted once ``cudaGetLastError()`` passed it).
 """
 
 from __future__ import annotations
@@ -25,12 +25,12 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import NEG_INF, attention_mask, ref_flash_attention
+from repro_torch.kernels.ref import ref_flash_attention
 
 #: kernel launches since import (the main path's proof that it ran K5)
 launches = 0
@@ -134,75 +134,26 @@ def plan_launch(
                       BH * _cdiv(Sq, SIMT_BLOCK_Q))
 
 
-def split_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    causal: bool = True, window: int = 0, q_offset: int = 0,
-    key_lo: Optional[int] = None, split_len: Optional[int] = None,
-) -> torch.Tensor:
-    """Plain PyTorch version of the decode path's arithmetic: per key chunk
-    the float32 partial ``(m, l, acc)`` of an online softmax with the -1e30
-    rule (``p`` rounded to v's type for the P.V product), then the combine
-    ``sum_i exp(m_i - M) acc_i / max(sum_i exp(m_i - M) l_i, 1e-30)``.
-
-    The chunks are the plan's unless ``key_lo`` / ``split_len`` are given.
-    A chunk that no row sees is skipped (its partial is ``(-1e30, 0, 0)``),
-    unless some row sees no key at all: then every chunk is walked, and the
-    combine averages v over all keys, as the reference does."""
-    BH, Sq, D = q.shape
-    Skv = k.shape[1]
-    plan = plan_launch(BH, Sq, Skv, D, q.dtype, causal=causal, window=window,
-                       q_offset=q_offset)
-    key_lo = plan.key_lo if key_lo is None else key_lo
-    split_len = plan.split_len if split_len is None else split_len
-    if plan.path != "decode" and split_len == 0:
-        split_len = Skv - key_lo
-    begin, end = key_range(Sq, Skv, causal=causal, window=window,
-                           q_offset=q_offset)
-    walk_all = not bool(
-        attention_mask(Sq, Skv, causal=causal, window=window,
-                       q_offset=q_offset, kv_len=None, device=q.device)
-        .any(-1).all())
-    qf = q.float()
-    scale = 1.0 / (D ** 0.5)
-    ms, ls, accs = [], [], []
-    for s0 in range(key_lo, Skv, split_len):
-        s1 = min(Skv, s0 + split_len)
-        if not walk_all and (s1 <= begin or s0 >= end):
-            ms.append(torch.full((BH, Sq), NEG_INF, device=q.device))
-            ls.append(torch.zeros((BH, Sq), device=q.device))
-            accs.append(torch.zeros((BH, Sq, D), device=q.device))
-            continue
-        s = torch.einsum("bqd,bkd->bqk", qf, k[:, s0:s1].float()) * scale
-        mask = attention_mask(Sq, s1, causal=causal, window=window,
-                              q_offset=q_offset, kv_len=None,
-                              device=q.device)[:, s0:]
-        s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
-        m = s.amax(-1)
-        p = torch.exp(s - m[..., None])
-        ms.append(m)
-        ls.append(p.sum(-1))
-        accs.append(torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(),
-                                 v[:, s0:s1].float()))
-    m_all = torch.stack(ms)                   # (splits, BH, Sq)
-    w = torch.exp(m_all - m_all.amax(0))
-    den = (w * torch.stack(ls)).sum(0).clamp_min(1e-30)
-    num = (w[..., None] * torch.stack(accs)).sum(0)
-    return (num / den[..., None]).to(q.dtype)
-
-
-@functools.lru_cache(maxsize=None)
-def _entry():
-    """The C entry point, its argument types set once."""
-    fn = _build.load_library("flash_attention").k5_flash_attention
+def bind(lib: ctypes.CDLL):
+    """The C entry point ``k5_flash_attention`` of a loaded library, its
+    argument types set."""
+    fn = lib.k5_flash_attention
     fn.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int),
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The C entry point of the library built from ``csrc``."""
+    return bind(_build.load_library("flash_attention"))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -214,8 +165,10 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _launch(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-    window: int, q_offset: int,
+    window: int, q_offset: int, entry=None,
 ) -> torch.Tensor:
+    """Run the planned kernels through ``entry`` (default: the library
+    built from ``csrc``; another build's :func:`bind` for a comparison)."""
     global launches
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("the flash kernels need q, k and v of one dtype")
@@ -235,22 +188,23 @@ def _launch(
     if plan.launches == 2:
         work = torch.empty(BH * plan.splits * Sq * (D + 2), device=q.device,
                            dtype=torch.float32)
-    entry = _entry()
+    entry = entry or _entry()
+    made = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = entry(
             _DTYPE_CODES[q.dtype], _PATH_CODES[plan.path], q.data_ptr(),
             k.data_ptr(), v.data_ptr(), o.data_ptr(), work.data_ptr(), BH, Sq,
             Skv, D, int(causal), int(window), int(q_offset), 1.0 / (D ** 0.5),
-            plan.key_lo, plan.split_len, plan.splits, stream,
+            plan.key_lo, plan.split_len, plan.splits, stream, ctypes.byref(made),
         )
+    launches += made.value
     if rc != 0:
         raise RuntimeError(
             f"flash attention kernel launch failed (code {rc}) on the "
             f"{plan.path} path for dtype={q.dtype} q={tuple(q.shape)} "
             f"k={tuple(k.shape)}"
         )
-    launches += plan.launches
     return o
 
 
