@@ -8,11 +8,16 @@ non-zero without printing a result:
 
 1. device   — the card, its power limit, TF32 off, every kernel library
               built from ``src/repro_torch/kernels/csrc`` with nvcc (one nvcc
-              per source, all started together), ptxas registers and spills.
+              per source, all started together), ptxas registers and spills
+              (of every K1, K2 and K5 kernel; a spill in K1's register path
+              or K2's cluster path fails the run).
 2. kernel   — K1 (the fused collective kernel) against its plain PyTorch
               version on the card, for every phase kind, operator and wire
-              dtype, over several rank counts, a ragged width, NaN inputs and
-              a rank count large enough for the global-scratch column path.
+              dtype, over rank counts of its register path (p <= 16) and
+              its column path (p = 64, and 500/512 for the global-scratch
+              column), a ragged width, NaN inputs and rows off 16-byte
+              alignment; each call's launches by path held to
+              ``plan_launch``'s.
 3. onchip   — K3 (prefix scan), K4 (SSD scan) and K5 (flash attention)
               through ``repro_torch.kernels.ops`` against their plain versions
               on the card: ragged, N-d and NaN inputs, every mask of K5 on
@@ -25,8 +30,9 @@ non-zero without printing a result:
               ``offload`` for SCAN, EXSCAN, ALLREDUCE and BARRIER at p = 8 and
               16 over the osu_scan message sizes (4 B - 1 MiB per rank) plus a
               25 MiB ALLREDUCE, each held against the port's default sim
-              lowering and, on a small input, against numpy. K1's launch count
-              is zeroed right before and read right after.
+              lowering and, on a small input, against numpy. K1's launch
+              counts (in all and by path) are zeroed right before and read
+              right after: every launch on the register path.
 5. entry    — the on-chip entry points at full width: Mamba2-130m's segment
               scan, OLMoE's expert offsets, memory-bound (8192, 8192) scans,
               Mamba2-130m's SSD recurrence, SmolLM-360M and Gemma3-27B
@@ -35,18 +41,21 @@ non-zero without printing a result:
               K3 and K4; for K5 the launches its C entry reports, held to
               ``plan_launch``'s count); each result is held against its plain
               version.
-6. spmd     — the per-rank path: K2 (the per-rank collective kernel, peer
-              puts and signal flags) through ``get_backend("pallas").lower(
-              plan, op, axis_names=("i",))`` under the port's ``shard_map``
-              on co-resident meshes of 8 and 16 ranks on the card: SCAN and
-              EXSCAN, ALLREDUCE on every wire dtype and SSD, BARRIER and the
-              fused scan+total plan, 4 B - 1 MiB per rank plus a 25 MiB
-              ALLREDUCE, each dispatched twice and held bitwise against K1
-              and within K1's tolerance against K2's plain version and
-              ``lower_spmd``. K2's launch count is zeroed right before and
-              read right after. Then the engine in driver mode (a mesh
-              passed to ``offload``) for the five CollTypes and a planned
-              (2, 4) SCAN, bitwise against sim mode.
+6. spmd     — the per-rank path: K2 (the per-rank collective kernel)
+              through ``get_backend("pallas").lower(plan, op,
+              axis_names=("i",))`` under the port's ``shard_map`` on
+              co-resident meshes of 8 and 16 ranks on the card (its cluster
+              path): SCAN and EXSCAN, ALLREDUCE on every wire dtype and SSD,
+              BARRIER and the fused scan+total plan, 4 B - 1 MiB per rank
+              plus a 25 MiB ALLREDUCE; fewer cases at 3, 6 and 12 ranks
+              (clusters of no power of two) and 32 (its flags path, peer
+              puts and signal flags). Each is dispatched twice and held
+              bitwise against K1, K2's plain version and ``lower_spmd``.
+              K2's launch counts (in all and by path, held to
+              ``plan_launch``'s) are zeroed right before and read right
+              after. Then the engine in driver mode (a mesh passed to
+              ``offload``) for the five CollTypes and a planned (2, 4) SCAN,
+              bitwise against sim mode.
 7. baseline — the paper's comparison (Figs. 4-5) at p = 8, float32 SUM:
               host-stepped ``host_scan`` (a dispatch and a sync per hop)
               against the whole schedule as one CUDA graph replay, and K1
@@ -56,8 +65,11 @@ non-zero without printing a result:
               at the main and entry shapes: device time from
               ``torch.profiler`` and the per-call time with CUDA events
               (host overhead included), beside the least time the card's
-              memory bandwidth or peak rate allows; and the engine's
-              driver-mode dispatch latency beside sim mode's.
+              memory bandwidth or peak rate allows; K1's register and K2's
+              cluster path each beside the PR 13 path (named explicitly,
+              timed in turns) at SCAN p = 8 and 16, 1 MiB per rank, and a
+              25 MiB ALLREDUCE; and the engine's driver-mode dispatch
+              latency beside sim mode's.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is the result object.
@@ -92,13 +104,16 @@ _PEAK_FLOPS = (
 )
 
 CSRC = "src/repro_torch/kernels/csrc"
+#: the kernel of each K1 / K2 path, as the profiler and ptxas name it
+PATH_KERNELS = {"register": "k1_register_kernel", "column": "k1_column_kernel",
+                "cluster": "k2_cluster_kernel", "flags": "k2_flags_kernel"}
 #: (name in the kernels line, CUDA source, TPU kernel it replaces, the
 #: kernel's function name as the profiler lists it)
 KERNELS = {
     "k1": ("k1_fused_comm", "fused_collective",
-           "src/repro/kernels/pallas_collective.py:362", "k1_kernel"),
+           "src/repro/kernels/pallas_collective.py:362", "k1_register_kernel"),
     "k2": ("k2_spmd_comm", "spmd_collective",
-           "src/repro/kernels/pallas_collective.py:180", "k2_kernel"),
+           "src/repro/kernels/pallas_collective.py:180", "k2_cluster_kernel"),
     "k3": ("k3_prefix_scan", "prefix_scan",
            "src/repro/kernels/prefix_scan.py:45", "k3_scan_kernel"),
     "k4": ("k4_ssd_scan", "ssd_scan",
@@ -227,38 +242,68 @@ def tolerance(torch, op, dtype):
 # ---------------------------------------------------------------------------
 
 
-_PTXAS_DTYPES = (("f", "float32"), ("13__nv_bfloat16", "bfloat16"),
-                 ("6__half", "float16"))
+def demangle(names):
+    """C++ names of mangled kernel symbols (cu++filt or c++filt; the mangled
+    names where neither is installed)."""
+    import shutil
+
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    cuda = Path("/usr/local/cuda/bin/cu++filt")
+    if tool is None and cuda.exists():
+        tool = str(cuda)
+    if tool is None or not names:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60, check=True).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
 
 
-def ptxas_kernels(log: str):
-    """Registers and spill-store bytes of each K5 kernel instantiation, from
-    ptxas's ``-v`` report, keyed as ``name<dtype, D>``."""
-    out, key = {}, None
+def ptxas_paths(log: str, kernels):
+    """Registers and spill-store bytes of every instantiation of the named
+    kernels, from ptxas's ``-v`` report, keyed by its C++ name without
+    namespaces or parameters, e.g. ``k1_register_kernel<float, OpSum<float>,
+    0, 8, 4>`` (leaf type, operator, kind, P_MAX, VEC)."""
+    found = []
+    entry = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            key = None
-            mangled = m.group(1)
-            # the kernel's name, then its template arguments (I...E)
-            n = re.search(r"k5_flash_kernel(?:_tc|_decode|_combine)?(?=I)", mangled)
-            if n:
-                ident, rest = n.group(0), mangled[n.end():]
-                dtype = next((name for code, name in _PTXAS_DTYPES
-                              if rest.startswith("I" + code)), "?")
-                d = re.search(r"Li(\d+)E", rest)
-                key = f"{ident}<{dtype}{', ' + d.group(1) if d else ''}>"
-                out[key] = {}
+            entry = None
+            if any(k in m.group(1) for k in kernels):
+                entry = {"mangled": m.group(1)}
+                found.append(entry)
             continue
-        if key is None:
+        if entry is None:
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
-            out[key]["spill_store_bytes"] = int(m.group(1))
+            entry["spill_store_bytes"] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            out[key]["registers"] = int(m.group(1))
+            entry["registers"] = int(m.group(1))
+    out = {}
+    for entry, name in zip(found, demangle([e["mangled"] for e in found])):
+        out[kernel_key(name)] = [entry.get("registers"),
+                                 entry.get("spill_store_bytes")]
     return out
+
+
+def kernel_key(name: str) -> str:
+    """A demangled kernel's name and template arguments, without namespaces,
+    ``(int)`` casts or its parameter list."""
+    name = re.sub(r"<unnamed>::|\(anonymous namespace\)::|collective::|reg::|"
+                  r"cl::|\(int\)|^void ", "", name)
+    depth = 0
+    for i, ch in enumerate(name):
+        if ch == "<":
+            depth += 1
+        elif ch == ">":
+            depth -= 1
+            if depth == 0:
+                return name[:i + 1]
+        elif ch == "(" and depth == 0:
+            return name[:i]
+    return name
 
 
 def phase_device(torch):
@@ -283,6 +328,17 @@ def phase_device(torch):
             "max_registers": max(regs) if regs else None,
             "max_spill_store_bytes": max(spills) if spills else None,
         }
+    k1_kernels = ptxas_paths(_build.build_log("fused_collective"),
+                             ("k1_register_kernel", "k1_column_kernel"))
+    k2_kernels = ptxas_paths(_build.build_log("spmd_collective"),
+                             ("k2_cluster_kernel", "k2_flags_kernel"))
+    # the register and cluster kernels shrink VEC (or keep one row) so that
+    # nothing spills; a build loaded from an earlier run has no log to read
+    for table in (k1_kernels, k2_kernels):
+        spilling = [k for k, (_, spill) in table.items()
+                    if ("register" in k or "cluster" in k) and spill]
+        if spilling:
+            raise AssertionError(f"ptxas spills in {spilling[:5]}")
     name = torch.cuda.get_device_name(0)
     emit({
         "phase": "device",
@@ -294,13 +350,35 @@ def phase_device(torch):
         "libraries": [str(p.relative_to(REPO)) for p in paths.values()],
         "build_s": round(build_s, 3),
         "ptxas": ptxas,
-        "k5_kernels": ptxas_kernels(_build.build_log("flash_attention")),
+        # [registers, spill-store bytes] of every K1, K2 and K5 kernel
+        "k5_kernels": ptxas_paths(_build.build_log("flash_attention"),
+                                  ("k5_flash_kernel",)),
+        "k1_kernels": k1_kernels,
+        "k2_kernels": k2_kernels,
     })
     return name, smi
 
 
+def launch_as_planned(fc, kind, p, op, x, inclusive, paths, path=None):
+    """One K1 call; the launches its C entry reports, by path, held to
+    ``plan_launch``'s (added to ``paths``)."""
+    leaves = leaves_of(x)
+    M = leaves[0].numel() // p
+    before = dict(fc.path_launches)
+    got = fc.comm_phase(kind, p, op, x, inclusive=inclusive, path=path)
+    plan = fc.plan_launch(kind, p, M, leaves[0].dtype, len(leaves),
+                          fc.aligned_rows(leaves, M), path=path)
+    made = {k: fc.path_launches[k] - before[k] for k in before}
+    want = {k: plan.launches if k == plan.path else 0 for k in before}
+    if made != want:
+        raise AssertionError(f"{kind.name} p={p}: launched {made}, planned {want}")
+    for k, n in made.items():
+        paths[k] += n
+    return got
+
+
 def phase_kernel(torch, device):
-    from repro_torch.core.operators import get_operator
+    from repro_torch.core.operators import SUM, get_operator
     from repro_torch.kernels import fused_collective as fc
     from repro_torch.offload.planner import PhaseKind
 
@@ -315,6 +393,7 @@ def phase_kernel(torch, device):
     cases = 0
     worst = 0.0
     worst_by_op = {}
+    paths = {"register": 0, "column": 0}  # launches each path made
     for kind, inclusive in forms:
         butterfly = kind in (PhaseKind.TOTAL, PhaseKind.BARRIER)
         ps = (2, 8, 16, 64, 512) if butterfly else (2, 3, 5, 8, 16, 64, 500)
@@ -326,9 +405,14 @@ def phase_kernel(torch, device):
             if kind == PhaseKind.TOTAL:
                 combos += [(o, d) for o in ("ssd", "flash")
                            for d in (torch.float32, torch.bfloat16, torch.float16)]
+            else:
+                # a non-commutative combine, where operand order shows
+                combos += [("ssd", torch.float32)]
         for p in ps:
-            # 1000 columns: a ragged last block; p=500/512 take the global
-            # scratch path (the column no longer fits in shared memory)
+            # 1000 columns: a ragged last block (int8 rows, 1000 bytes, are
+            # not 16-byte aligned: VEC = 1); p <= 16 take the register
+            # path, 64 the column path in shared memory, 500/512 in global
+            # scratch (the column no longer fits in shared memory)
             width = 1 if kind == PhaseKind.BARRIER else 1000
             for opname, dtype in combos:
                 if p >= 500 and (opname, dtype) not in (("sum", torch.float32),
@@ -338,10 +422,7 @@ def phase_kernel(torch, device):
                 op = get_operator(opname)
                 x = make_input(torch, gen, opname, dtype, (p, width), device,
                                nan=dtype.is_floating_point and opname != "prod")
-                before = fc.launches
-                got = fc.comm_phase(kind, p, op, x, inclusive=inclusive)
-                if fc.launches != before + 1:
-                    raise AssertionError("the wrapper did not launch the kernel")
+                got = launch_as_planned(fc, kind, p, op, x, inclusive, paths)
                 want = fc.comm_phase_plain(kind, p, op, x, inclusive=inclusive)
                 torch.cuda.synchronize()
                 rtol, atol = tolerance(torch, opname, dtype)
@@ -356,6 +437,27 @@ def phase_kernel(torch, device):
                     key = f"{opname}:{str(dtype).replace('torch.', '')}"
                     worst_by_op[key] = max(worst_by_op.get(key, 0.0), err)
                 cases += 1
+
+    # rows that start off 16 bytes (a view one element into its storage):
+    # the register path's VEC = 1 instance; then the column path at p <= 16
+    for kind, inclusive in forms[:5]:
+        for path in (None, "column"):
+            p = 8
+            base = make_input(torch, gen, "sum", torch.float32, (p * 1000 + 1,),
+                              device)
+            x = base[1:].view(p, 1000)
+            if path is None and fc.aligned_rows([x], 1000):
+                raise AssertionError("the offset view is 16-byte aligned")
+            got = launch_as_planned(fc, kind, p, SUM, x, inclusive, paths,
+                                    path=path)
+            want = fc.comm_phase_plain(kind, p, SUM, x, inclusive=inclusive)
+            torch.cuda.synchronize()
+            pairs = list(zip(got, want)) if kind == PhaseKind.FUSED_SCAN_TOTAL \
+                else [(got, want)]
+            for g, w in pairs:
+                assert_match(torch, g, w, 0.0, 0.0,
+                             f"{kind.name} incl={inclusive} offset rows {path}")
+            cases += 1
 
     # leaves of unequal shapes: SSD's decay and flash's (m, l) broadcast
     # against the state (one launch, results sliced back to each leaf's
@@ -378,6 +480,7 @@ def phase_kernel(torch, device):
         got = fc.comm_phase(kind, p, op, x, inclusive=inclusive)
         if fc.launches != before + n_launch:
             raise AssertionError(f"{opname}: {fc.launches - before} launches")
+        paths["register"] += n_launch
         want = fc.comm_phase_plain(kind, p, op, x, inclusive=inclusive)
         torch.cuda.synchronize()
         pairs = list(zip(got, want)) if kind == PhaseKind.FUSED_SCAN_TOTAL \
@@ -389,7 +492,7 @@ def phase_kernel(torch, device):
                 raise AssertionError(f"{opname}: leaf shapes not kept")
         cases += 1
     emit({"phase": "kernel", "cases": cases, "bitwise_f32_max_abs_err": worst,
-          "max_abs_err_by_op": worst_by_op, "ok": True})
+          "max_abs_err_by_op": worst_by_op, "path_launches": paths, "ok": True})
 
 
 MAIN_SIZES = (4, 1 << 10, 16 << 10, 256 << 10, 1 << 20)
@@ -432,6 +535,8 @@ def phase_main(torch, device):
     torch.cuda.synchronize()
 
     fc.launches = 0
+    for key in fc.path_launches:
+        fc.path_launches[key] = 0
     outs = []
     repeat_hits = 0
     for coll, p, nb, desc, x in runs:
@@ -442,11 +547,15 @@ def phase_main(torch, device):
         outs.append((first, again))
     torch.cuda.synchronize()
     launches = fc.launches
+    paths = dict(fc.path_launches)
 
     snap = eng.telemetry.snapshot()
     n = len(runs)
     if launches < 2 * n:
         raise AssertionError(f"K1 launched {launches} times for {2 * n} dispatches")
+    # every request has p <= 16: plan_launch sends each to the register path
+    if paths != {"register": launches, "column": 0}:
+        raise AssertionError(f"K1 launches by path {paths} of {launches}")
     if snap["backend_fallbacks"] != 0:
         raise AssertionError(f"fallbacks taken: {snap['backend_fallback_reasons']}")
     if repeat_hits != n:
@@ -482,6 +591,7 @@ def phase_main(torch, device):
         "phase": "main",
         "dispatches": snap["dispatches"],
         "k1_launches": launches,
+        "k1_path_launches": paths,
         "launches_per_dispatch": launches / snap["dispatches"],
         "cache_hits": snap["hits"],
         "cache_misses": snap["misses"],
@@ -938,19 +1048,49 @@ def phase_baseline(torch, device):
 # ---------------------------------------------------------------------------
 
 SPMD_PS = (8, 16)
+#: rank counts of a reduced case list: 32 takes K2's flags path, the others
+#: clusters of a size that is no power of two
+SPMD_PS_REDUCED = (3, 6, 12, 32)
 WIRE_DTYPES = ("int32", "float32", "bfloat16", "float16", "int8")
 
 
 def spmd_plans(torch, p):
     """(label, plan, op name, dtype, bytes per rank) of the spmd phase: the
     cases of repro/testing/pallas_check.py over the osu sizes, ALLREDUCE on
-    every wire dtype, and a 25 MiB ALLREDUCE at p = 8."""
+    every wire dtype and over the SSD and flash operators, and a 25 MiB
+    ALLREDUCE at p = 8; for the rank counts
+    of ``SPMD_PS_REDUCED``, the scans, the fused plan and (pow2 p) the
+    float32 ALLREDUCE and BARRIER at 4 B, 1 KiB and 1 MiB."""
     import dataclasses
 
     from repro_torch.offload.planner import PhaseKind, PlanPhase, build_plan
 
     hs = ("hillis_steele",)
     cases = []
+    if p in SPMD_PS_REDUCED:
+        pow2 = p & (p - 1) == 0
+        for nb in (4, 1 << 10, 1 << 20):
+            for coll in ("SCAN", "EXSCAN"):
+                cases.append((f"{coll} sum", build_plan(
+                    coll, (p,), "sum", nb, level_algorithms=hs),
+                    "sum", torch.float32, nb))
+            if pow2:
+                cases.append(("ALLREDUCE sum", build_plan(
+                    "ALLREDUCE", (p,), "sum", nb), "sum", torch.float32, nb))
+            for inclusive in (True, False):
+                base = build_plan("SCAN" if inclusive else "EXSCAN", (p,),
+                                  "sum", nb, level_algorithms=hs)
+                phase = PlanPhase(PhaseKind.FUSED_SCAN_TOTAL, 0,
+                                  "fused_doubling", inclusive=inclusive,
+                                  src=("x",), dst="y", dst2="t")
+                cases.append((
+                    f"FUSED {'inc' if inclusive else 'exc'} t",
+                    dataclasses.replace(base, phases=(phase,), result="t"),
+                    "sum", torch.float32, nb))
+        if pow2:
+            cases.append(("BARRIER", build_plan("BARRIER", (p,), "max", 4),
+                          "max", torch.float32, 4))
+        return cases
     for nb in MAIN_SIZES:
         for coll in ("SCAN", "EXSCAN"):
             for dtype in (torch.float32, torch.int32):
@@ -964,6 +1104,10 @@ def spmd_plans(torch, p):
                     getattr(torch, name), nb))
         cases.append(("ALLREDUCE ssd", build_plan("ALLREDUCE", (p,), "ssd", nb),
                       "ssd", torch.float32, nb))
+        for name in ("float32", "bfloat16"):
+            cases.append(("ALLREDUCE flash", build_plan(
+                "ALLREDUCE", (p,), "flash", nb), "flash", getattr(torch, name),
+                nb))
         for inclusive in (True, False):
             # pallas_check's hand-fused FUSED_SCAN_TOTAL plan, both outputs
             base = build_plan("SCAN" if inclusive else "EXSCAN", (p,), "sum",
@@ -1009,9 +1153,10 @@ def spmd_plain(torch, plan, p, op):
 
 def phase_spmd(torch, device):
     """K2 through ``get_backend("pallas").lower(plan, op, axis_names=("i",))``
-    under the port's shard_map on co-resident meshes of 8 and 16 ranks, held
-    against its plain version, K1 and lower_spmd; then the engine in driver
-    mode against sim mode."""
+    under the port's shard_map on co-resident meshes of 8 and 16 ranks (and
+    3, 6, 12 and 32 on fewer cases), held bitwise against its plain
+    version, K1 and lower_spmd, each path's launches held to
+    ``plan_launch``'s; then the engine in driver mode against sim mode."""
     import numpy as np
 
     from repro_torch import OffloadEngine
@@ -1020,13 +1165,13 @@ def phase_spmd(torch, device):
     from repro_torch.kernels import fused_collective as fc
     from repro_torch.kernels import spmd_collective as k2
     from repro_torch.offload import backends
-    from repro_torch.offload.planner import lower_spmd
+    from repro_torch.offload.planner import PhaseKind, lower_spmd
 
     gen = torch.Generator(device=device)
     gen.manual_seed(6)
     pallas = backends.get_backend("pallas")
     runs = []
-    for p in SPMD_PS:
+    for p in SPMD_PS + SPMD_PS_REDUCED:
         mesh = Mesh((p,), ("i",), device=device)
         for label, plan, opname, dtype, nb in spmd_plans(torch, p):
             ok, reason = pallas.capabilities(plan, ("i",))
@@ -1044,8 +1189,20 @@ def phase_spmd(torch, device):
             runs.append((p, mesh, label, plan, opname, dtype, nb, x, run))
     torch.cuda.synchronize()
 
+    # the launches plan_launch gives each path
+    planned = {"cluster": 0, "flags": 0}
+    for p, mesh, label, plan, opname, dtype, nb, x, run in runs:
+        (ph,) = plan.phases
+        n_leaves = len(leaves_of(x)) if x is not None else 1
+        M = leaves_of(x)[0].shape[1] if x is not None else 1
+        got = k2.plan_launch(ph.kind, p, M, dtype, n_leaves,
+                             inclusive=ph.inclusive)
+        planned[got.path] += 2 * got.launches
+
     # K2's path: counts zeroed just before, read just after
     k2.launches = 0
+    for key in k2.path_launches:
+        k2.path_launches[key] = 0
     outs = []
     for *_, x, run in runs:
         args = () if x is None else (x,)
@@ -1054,10 +1211,41 @@ def phase_spmd(torch, device):
         outs.append((first, again))
     torch.cuda.synchronize()
     launches = k2.launches
+    paths = dict(k2.path_launches)
     if launches != 2 * len(runs):
         raise AssertionError(
             f"K2 launched {launches} times for {2 * len(runs)} dispatches of "
             "one-comm-phase plans")
+    if paths != planned:
+        raise AssertionError(f"K2 launches by path {paths}, planned {planned}")
+
+    order_cases = 0
+    # operand order: SCAN and FUSED over SSD's non-commutative combine (no
+    # plan routes them to K2, which scans zero-identity operators only)
+    ssd = get_operator("ssd")
+    for p in SPMD_PS:
+        mesh = Mesh((p,), ("i",), device=device)
+        x = make_input(torch, gen, "ssd", torch.float32, (p, 3000), device)
+        for kind, inclusive in ((PhaseKind.SCAN, True), (PhaseKind.SCAN, False),
+                                (PhaseKind.FUSED_SCAN_TOTAL, True),
+                                (PhaseKind.FUSED_SCAN_TOTAL, False)):
+            def per_rank(fn, kind=kind, inclusive=inclusive, p=p):
+                return shard_map(
+                    lambda t: fn(kind, p, "i", ssd, t, inclusive=inclusive),
+                    mesh, ("i",), "i")(x)
+
+            got = per_rank(k2.comm_phase_spmd)
+            want = per_rank(k2.comm_phase_spmd_plain)
+            k1 = fc.comm_phase(kind, p, ssd, x, inclusive=inclusive)
+            torch.cuda.synchronize()
+            pairs = zip(got, want, k1) if kind == PhaseKind.FUSED_SCAN_TOTAL \
+                else [(got, want, k1)]
+            what = f"spmd p={p} {kind.name} incl={inclusive} ssd"
+            for g, w, k in pairs:
+                assert_match(torch, g, k, 0.0, 0.0, what + " vs K1")
+                assert_match(torch, g, w, *tolerance(torch, "ssd", torch.float32),
+                             what + " vs plain")
+            order_cases += 1
 
     worst = {}
     checked = 0
@@ -1076,7 +1264,10 @@ def phase_spmd(torch, device):
         k1 = fc.lower_fused(plan, op, device=device)(x)
         torch.cuda.synchronize()
         what = f"spmd p={p} {label} {dtype_name(dtype)} {nb}B"
-        rtol, atol = tolerance(torch, opname, dtype)
+        # bitwise: the plain version and lower_spmd repeat K1's combines in
+        # the reference's order, all but flash's exp (PyTorch's, not expf)
+        rtol, atol = tolerance(torch, opname, dtype) if opname == "flash" \
+            else (0.0, 0.0)
         assert_match(torch, again, first, 0.0, 0.0, what + " (again)")
         assert_match(torch, first, k1, 0.0, 0.0, what + " vs K1")
         err = max(assert_match(torch, first, plain, rtol, atol, what + " vs plain"),
@@ -1116,8 +1307,10 @@ def phase_spmd(torch, device):
         assert_match(torch, got, want, 0.0, 0.0,
                      f"driver {coll} p={desc.comm_size}")
     snap = eng.telemetry.snapshot()
-    emit({"phase": "spmd", "ranks": list(SPMD_PS), "cases": checked,
-          "k2_launches": launches, "dispatches": 2 * checked,
+    emit({"phase": "spmd", "ranks": list(SPMD_PS + SPMD_PS_REDUCED),
+          "cases": checked, "operand_order_cases": order_cases,
+          "k2_launches": launches,
+          "k2_path_launches": paths, "dispatches": 2 * checked,
           "launches_per_dispatch": launches / (2 * checked),
           "max_abs_err_vs_plain_by_op": worst,
           "driver_cases": len(driver), "driver_dispatches": snap["dispatches"],
@@ -1126,10 +1319,57 @@ def phase_spmd(torch, device):
     return launches
 
 
+#: the shapes where K1 and K2 are each timed on their new path beside the
+#: PR 13 path in one run: the headline, p = 16, and DDP's 25 MiB bucket
+COMPARE_SHAPES = (("SCAN", 8, 1 << 20), ("SCAN", 16, 1 << 20),
+                  ("ALLREDUCE", 8, ALLREDUCE_BIG))
+#: the card's L2 (50 MB on an H100): a call whose input and output fit is
+#: served from it when timed back to back, below the HBM bound's reach
+L2_BYTES = 50e6
+
+
+def paths_in_turns(torch, calls, iters):
+    """Device time (profiler, the named kernel) and event time per call of
+    each entry of ``calls`` ({label: (fn, kernel name)}), taken in turns
+    a, b, b, a within this run; a list of the two readings each."""
+    names = list(calls)
+    out = {n: {"ms": [], "event_ms": []} for n in names}
+    for n in names + names[::-1]:
+        fn, kernel = calls[n]
+        out[n]["ms"].append(device_ms(torch, fn, iters, name=kernel))
+        out[n]["event_ms"].append(time_ms(torch, fn, iters))
+    return out
+
+
+def compare_row(torch, key, coll, p, nb, x, times, library, card, iters):
+    """One same-run comparison row of two paths, beside the library call
+    and the bytes bound."""
+    nbytes = 2 * x.numel() * x.element_size()  # read once, write once
+    bound_ms = nbytes / mem_bandwidth(card) * 1e3
+    return {
+        "kernel": key, "coll": coll, "p": p, "bytes_per_rank": nb,
+        "paths": times,
+        "library": "torch.cumsum(x, 0)" if coll == "SCAN" else "x.sum(0)",
+        "library_ms": device_ms(torch, library, iters),
+        "library_event_ms": time_ms(torch, library, iters),
+        "bound_ms": bound_ms, "bound_by": "bytes",
+        # from the faster turn whose trace held the kernels (a turn whose
+        # three traces all missed activities reads null)
+        "bound_share": {k: (bound_ms / min(m for m in v["ms"] if m)
+                            if any(v["ms"]) else None)
+                        for k, v in times.items()},
+        # in + out fit the L2: back-to-back calls read and write it, and
+        # the HBM bound is no floor (the library call may run under it)
+        "l2_resident": nbytes <= L2_BYTES,
+    }
+
+
 def phase_times_spmd(torch, device, card, launches):
-    """K2 at SCAN float32 SUM, p = 8, 1 MiB per rank, beside K1, its plain
-    version and torch.cumsum; then the engine's driver-mode dispatch latency
-    beside sim mode's at p = 8 over the osu sizes."""
+    """K2 on its cluster path beside its flags path (the PR 13 kernel), in
+    turns, at SCAN float32 SUM p = 8 and 16, 1 MiB per rank, and a 25 MiB
+    ALLREDUCE at p = 8, with K1 and the library call; K2's plain version at
+    the headline; then the engine's driver-mode dispatch latency beside sim
+    mode's at p = 8 over the osu sizes."""
     from statistics import median
 
     from repro_torch import OffloadEngine
@@ -1140,48 +1380,66 @@ def phase_times_spmd(torch, device, card, launches):
     from repro_torch.offload import backends
     from repro_torch.offload.planner import PhaseKind, build_plan
 
-    p, nb = 8, 1 << 20
     gen = torch.Generator(device=device)
     gen.manual_seed(7)
-    x = torch.randn((p, nb // 4), generator=gen, device=device)
-    mesh = Mesh((p,), ("i",), device=device)
-    plan = build_plan("SCAN", (p,), "sum", nb, level_algorithms=("hillis_steele",))
-    kernel = shard_map(backends.get_backend("pallas").lower(
-        plan, "sum", axis_names=("i",)), mesh, ("i",), "i")
-    plain = shard_map(spmd_plain(torch, plan, p, SUM), mesh, ("i",), "i")
-    k1 = lambda: fc.comm_phase(PhaseKind.SCAN, p, SUM, x)  # noqa: E731
-    library = lambda: torch.cumsum(x, 0)  # noqa: E731
-    err = assert_match(torch, kernel(x), plain(x), 0.0, 0.0, "times K2")
-    before = k2.launches
-    for _ in range(10):
-        kernel(x)
-    per_dispatch = (k2.launches - before) / 10
-    iters = 200
-    dev = {
-        "ms": device_ms(torch, lambda: kernel(x), iters, name="k2_kernel"),
-        "k1_ms": device_ms(torch, k1, iters, name="k1_kernel"),
-        "plain_ms": device_ms(torch, lambda: plain(x), 20),
-        "library_ms": device_ms(torch, library, iters),
-    }
-    event = {
-        "ms": time_ms(torch, lambda: kernel(x), iters),
-        "k1_ms": time_ms(torch, k1, iters),
-        "plain_ms": time_ms(torch, lambda: plain(x), 20),
-        "library_ms": time_ms(torch, library, iters),
-    }
-    # as in phase_times: one source for every field, so a field whose two
-    # traces held no device time stays null under "profiler"
-    timing = "profiler" if dev["ms"] is not None else "events"
-    times = dev if timing == "profiler" else event
-    bound_ms = 2 * x.numel() * x.element_size() / mem_bandwidth(card) * 1e3
-    row = {"coll": "SCAN", "p": p, "bytes_per_rank": nb, **times,
-           "timing": timing, "event_ms": event["ms"],
-           "k1_event_ms": event["k1_ms"], "plain_event_ms": event["plain_ms"],
-           "library_event_ms": event["library_ms"],
-           "bound_ms": bound_ms, "bound_by": "bytes",
-           "launches_per_dispatch": per_dispatch, "max_abs_err": err}
-    emit({"phase": "times_spmd", **row})
+    pallas = backends.get_backend("pallas")
+    head = None
+    for coll, p, nb in COMPARE_SHAPES:
+        kind = PhaseKind.SCAN if coll == "SCAN" else PhaseKind.TOTAL
+        x = torch.randn((p, nb // 4), generator=gen, device=device)
+        mesh = Mesh((p,), ("i",), device=device)
+        algos = {"level_algorithms": ("hillis_steele",)} if coll == "SCAN" else {}
+        plan = build_plan(coll, (p,), "sum", nb, **algos)
+        # the main route: the registry's lowering, whose launch plan_launch
+        # sends down the cluster path; the flags path named explicitly
+        kernel = shard_map(pallas.lower(plan, "sum", axis_names=("i",)), mesh,
+                           ("i",), "i")
+        flags = shard_map(
+            lambda t, kind=kind, p=p: k2.comm_phase_spmd(
+                kind, p, "i", SUM, t, path="flags"), mesh, ("i",), "i")
+        k1 = lambda kind=kind, p=p, x=x: fc.comm_phase(kind, p, SUM, x)  # noqa: E731
+        want = k1()
+        err = 0.0
+        for label, fn in (("cluster", kernel), ("flags", flags)):
+            before = dict(k2.path_launches)
+            got = fn(x)
+            if k2.path_launches[label] != before[label] + 1:
+                raise AssertionError(f"times K2 {coll} p={p}: not one "
+                                     f"{label} launch")
+            err = max(err, assert_match(torch, got, want, 0.0, 0.0,
+                                        f"times K2 {label} {coll} p={p}"))
+        big = x.numel() * 4 >= (64 << 20)
+        iters = 20 if big else 200
+        library = (lambda x=x: torch.cumsum(x, 0)) if coll == "SCAN" \
+            else (lambda x=x: x.sum(0))
+        times = paths_in_turns(torch, {
+            "cluster": (lambda: kernel(x), PATH_KERNELS["cluster"]),
+            "flags": (lambda: flags(x), PATH_KERNELS["flags"]),
+        }, iters)
+        row = compare_row(torch, "k2", coll, p, nb, x, times, library, card,
+                          iters)
+        row["k1_ms"] = device_ms(torch, k1, iters, name=PATH_KERNELS["register"])
+        row["k1_event_ms"] = time_ms(torch, k1, iters)
+        row["max_abs_err"] = err
+        if head is None:  # the headline: K2's plain version too
+            plain = shard_map(spmd_plain(torch, plan, p, SUM), mesh, ("i",), "i")
+            assert_match(torch, plain(x), want, 0.0, 0.0, "times K2 plain")
+            row["plain_ms"] = device_ms(torch, lambda: plain(x), 20)
+            row["plain_event_ms"] = time_ms(torch, lambda: plain(x), 20)
+            head = row
+        emit({"phase": "times_spmd", **row})
+        del x, kernel, flags
+    torch.cuda.empty_cache()
 
+    cluster = head["paths"]["cluster"]
+    # one source for every field, as in phase_times: events when a trace
+    # held no device time
+    timing = "profiler" if cluster["ms"][0] is not None and \
+        head["plain_ms"] is not None and head["library_ms"] is not None \
+        else "events"
+    pick = (lambda dev, ev: dev) if timing == "profiler" else (lambda dev, ev: ev)
+    p, nb = 8, 1 << 20
+    mesh = Mesh((p,), ("i",), device=device)
     eng = OffloadEngine()
     rows = []
     for size in MAIN_SIZES:
@@ -1208,15 +1466,16 @@ def phase_times_spmd(torch, device, card, launches):
     return {
         **kernel_ident("k2"),
         "launches": launches,
-        "max_abs_err": err,
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": bound_ms,
+        "max_abs_err": head["max_abs_err"],
+        "ms": pick(cluster["ms"][0], cluster["event_ms"][0]),
+        "plain_ms": pick(head["plain_ms"], head["plain_event_ms"]),
+        "bound_ms": head["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": row["library_ms"],
+        "library_ms": pick(head["library_ms"], head["library_event_ms"]),
         "timing": timing,
-        "event_ms": event["ms"],
-        "k1_ms": row["k1_ms"],
+        "event_ms": cluster["event_ms"][0],
+        "path": "cluster",
+        "k1_ms": pick(head["k1_ms"], head["k1_event_ms"]),
     }
 
 
@@ -1311,7 +1570,7 @@ def phase_times(torch, device, card, launches):
             "library_ms": time_ms(torch, library, iters) if library else None,
         }
         dev = {
-            "ms": device_ms(torch, kernel, iters, name="k1_kernel"),
+            "ms": device_ms(torch, kernel, iters, name=PATH_KERNELS["register"]),
             "plain_ms": device_ms(torch, plain, iters),
             "library_ms": device_ms(torch, library, iters) if library else None,
         }
@@ -1339,6 +1598,29 @@ def phase_times(torch, device, card, launches):
         }
         rows.append(row)
         emit({"phase": "times", **row})
+    # the register path beside the column path (the PR 13 kernel), in
+    # turns, at the shapes of COMPARE_SHAPES
+    for coll, p, nb in COMPARE_SHAPES:
+        kind = PhaseKind.SCAN if coll == "SCAN" else PhaseKind.TOTAL
+        x = torch.randn((p, nb // 4), generator=gen, device=device)
+        want = fc.comm_phase_plain(kind, p, SUM, x)
+        calls, err = {}, 0.0
+        for path in ("register", "column"):
+            fn = lambda kind=kind, p=p, x=x, path=path: fc.comm_phase(  # noqa: E731
+                kind, p, SUM, x, path=path)
+            err = max(err, assert_match(torch, fn(), want, 0.0, 0.0,
+                                        f"times K1 {path} {coll} p={p}"))
+            calls[path] = (fn, PATH_KERNELS[path])
+        iters = 20 if x.numel() * 4 >= (64 << 20) else 200
+        library = (lambda x=x: torch.cumsum(x, 0)) if coll == "SCAN" \
+            else (lambda x=x: x.sum(0))
+        row = compare_row(torch, "k1", coll, p, nb, x,
+                          paths_in_turns(torch, calls, iters), library, card,
+                          iters)
+        row["max_abs_err"] = err
+        emit({"phase": "times_paths", **row})
+        del x, want
+    torch.cuda.empty_cache()
     # the headline shape: SCAN, SUM float32, p=8, 1 MiB per rank (osu_scan's
     # largest default message)
     head = next(r for r in rows
@@ -1354,6 +1636,7 @@ def phase_times(torch, device, card, launches):
         "library_ms": head["library_ms"],
         "timing": head["timing"],
         "event_ms": head["event_ms"],
+        "path": "register",
     }
 
 

@@ -1,6 +1,6 @@
-// Element arithmetic and combine operators shared by the collective kernels
-// K1 (fused_collective.cu) and K2 (spmd_collective.cu), so both round every
-// combine the same way and their results agree bit for bit.
+// Element arithmetic, combine operators and row I/O shared by the collective
+// kernels K1 (fused_collective.cu) and K2 (spmd_collective.cu), so both round
+// every combine the same way and their results agree bit for bit.
 //
 // Every combine rounds to the leaf type (bf16/fp16 are computed in float and
 // rounded to nearest even), integer sums and products wrap, MAX/MIN
@@ -13,9 +13,11 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
+#include <cstring>
 
 namespace collective {
 
+enum Kind { KIND_SCAN = 0, KIND_FUSED = 1, KIND_BUTTERFLY = 2 };
 enum OpCode { OP_SUM = 0, OP_PROD = 1, OP_MAX = 2, OP_MIN = 3, OP_SSD = 4, OP_FLASH = 5 };
 enum DType { DT_INT32 = 0, DT_FLOAT32 = 1, DT_BFLOAT16 = 2, DT_FLOAT16 = 3, DT_INT8 = 4 };
 
@@ -80,14 +82,17 @@ template <typename T> struct IsFloat { static constexpr bool value = true; };
 template <> struct IsFloat<int32_t> { static constexpr bool value = false; };
 template <> struct IsFloat<int8_t> { static constexpr bool value = false; };
 
-// NaN-propagating max/min (fmaxf/fminf drop NaN; the reference keeps it)
+// NaN-propagating max/min (fmaxf/fminf drop NaN; the reference keeps it):
+// a if a is NaN, else b if b is NaN, else the larger (smaller). Written as
+// selects, not branches: branches in the fully unrolled rounds of K1's
+// register path made ptxas spill.
 template <typename T>
 __device__ __forceinline__ T max_nan(T a, T b) {
   if (IsFloat<T>::value) {
-    float fa = Num<T>::f(a), fb = Num<T>::f(b);
-    if (fa != fa) return a;
-    if (fb != fb) return b;
-    return fa >= fb ? a : b;
+    const float fa = Num<T>::f(a), fb = Num<T>::f(b);
+    T out = fa >= fb ? a : b;
+    out = fb != fb ? b : out;
+    return fa != fa ? a : out;
   }
   return a >= b ? a : b;
 }
@@ -95,10 +100,10 @@ __device__ __forceinline__ T max_nan(T a, T b) {
 template <typename T>
 __device__ __forceinline__ T min_nan(T a, T b) {
   if (IsFloat<T>::value) {
-    float fa = Num<T>::f(a), fb = Num<T>::f(b);
-    if (fa != fa) return a;
-    if (fb != fb) return b;
-    return fa <= fb ? a : b;
+    const float fa = Num<T>::f(a), fb = Num<T>::f(b);
+    T out = fa <= fb ? a : b;
+    out = fb != fb ? b : out;
+    return fa != fa ? a : out;
   }
   return a <= b ? a : b;
 }
@@ -159,5 +164,45 @@ template <typename T> struct OpFlash {
     o[2] = v;
   }
 };
+
+// ---- row I/O: VEC contiguous elements of one (p, M) row ------------------
+
+// an unsigned word of N bytes, the unit of one vector access
+template <int N> struct Raw;
+template <> struct Raw<16> { typedef uint4 type; };
+template <> struct Raw<8> { typedef uint2 type; };
+template <> struct Raw<4> { typedef unsigned type; };
+template <> struct Raw<2> { typedef unsigned short type; };
+template <> struct Raw<1> { typedef unsigned char type; };
+
+// elements [col, col + VEC) of a row into out. aligned: the row and col
+// start on VEC * sizeof(T) bytes and the whole vector lies below M (one
+// vector load); otherwise element loads, zero past M.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_row(const T* __restrict__ row, long long col, long long M,
+                                         bool aligned, T (&out)[VEC]) {
+  if (aligned) {
+    const typename Raw<VEC * sizeof(T)>::type raw =
+        *reinterpret_cast<const typename Raw<VEC * sizeof(T)>::type*>(row + col);
+    memcpy(out, &raw, sizeof(raw));
+    return;
+  }
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) out[v] = col + v < M ? row[col + v] : Num<T>::zero();
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_row(T* __restrict__ row, long long col, long long M,
+                                          bool aligned, const T (&in)[VEC]) {
+  if (aligned) {
+    typename Raw<VEC * sizeof(T)>::type raw;
+    memcpy(&raw, in, sizeof(raw));
+    *reinterpret_cast<typename Raw<VEC * sizeof(T)>::type*>(row + col) = raw;
+    return;
+  }
+#pragma unroll
+  for (int v = 0; v < VEC; ++v)
+    if (col + v < M) row[col + v] = in[v];
+}
 
 }  // namespace collective

@@ -1,6 +1,6 @@
 // K2: the per-rank collective kernel — every exchange round of one comm
-// phase in one launch, each rank running its own program and exchanging with
-// its partners through peer puts and signal flags.
+// phase in one launch, each rank running its own program and putting its
+// accumulator straight into its partner's memory.
 //
 // Replaces repro/kernels/pallas_collective.py::_spmd_comm_kernel (the spmd
 // form that _lower_pallas_spmd builds per phase under shard_map). Per rank it
@@ -18,13 +18,60 @@
 // combine(acc, recv) for the suffix stream and a higher one. The combines
 // are collective_ops.cuh's, shared with K1, so K2 and K1 agree bit for bit.
 //
-// The per-rank protocol. A rank's program is a set of thread blocks, each
-// owning tiles of the rank's payload (a grid-stride loop over tiles). For
-// exchange s of tile t, a block stores its accumulator tile into its
-// partner's receive region for exchange s, through a table of p peer
-// pointers (a symmetric layout: every rank's region has the same shape),
-// then raises the partner's signal flag (s, t). Before it reads, the block
-// waits on its own flag (s, t), then masks and combines.
+// Two paths; spmd_collective.plan_launch picks one from p.
+//
+// The cluster path (2 <= p <= 16): the Hopper counterpart of the
+// reference's make_async_remote_copy into the partner's buffer and its
+// receive semaphore. One thread-block cluster of p CTAs handles one column
+// tile; the CTA's rank in the cluster is the rank. The hardware schedules a
+// cluster's CTAs together, so the grid covers every tile (p * tiles CTAs on
+// grid.x) with no cooperative launch and no CTA walks a second tile.
+//   * A CTA loads only its own rank's row of the tile into registers, 16
+//     bytes a thread (one vector load where the rows are 16-byte aligned).
+//   * Exchange e has its own receive slot [e][leaf][tile row] and its own
+//     mbarrier in the receiving CTA's shared memory. A slot is written
+//     once per launch, so no slot needs a handshake to say it is free.
+//   * The sender writes its accumulator straight into the partner's slot
+//     with st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 (mapa
+//     gives the partner's addresses), one instruction per 16 bytes; the
+//     bytes complete on the partner's barrier. (K2_PUT_BULK=1 builds the
+//     bulk form: each thread writes its 16 bytes into a staging row of its
+//     own shared memory, and after a fence to the async proxy and a CTA
+//     barrier one thread copies each leaf row with cp.async.bulk; it needs
+//     twice the shared memory and timed up to 16% slower.) Every exchange is a full
+//     permutation, so every CTA receives in every exchange, whole rows
+//     (zeros past M), and each barrier is armed once for its slot's bytes.
+//   * Order: barriers initialised and armed, fence.mbarrier_init, then a
+//     cluster barrier (arrive.release, then the row loads, then
+//     wait.acquire) before any put; the receiver's
+//     try_wait.parity.acquire.cluster before it reads its slot; a cluster
+//     barrier at the end (arrive.relaxed after the last receive, wait
+//     after the stores), so no CTA exits while a peer may still address
+//     its shared memory.
+//   * No hang: every wait carries a clock64 deadline (about 2 s) and traps
+//     past it. So this path has no status word, no host read after the
+//     launch, no receive regions in device memory, no flags and no epoch.
+//   Tile: 128 threads x V vectors of 16 bytes a rank row, V = 4 where it
+//   fits (8 KiB rows: float32, int32, bf16, fp16 single-leaf operators), else
+//   2 or 1 (cl::row_vecs). The largest case, FUSED at p = 16 with the
+//   float32 flash operator (9 exchanges x 3 leaves, V = 2), needs 108 KiB
+//   of slots a CTA, so two CTAs fit an SM's 228 KiB and a GPC of 16 SMs
+//   holds two 16-CTA clusters; a SUM SCAN at p = 8 needs 24 KiB.
+//   Bound: besides p*M*itemsize bytes read and written a leaf, the cluster
+//   path moves exchanges x p x M x itemsize bytes a leaf through the
+//   SM-to-SM network. On an H100 the exchanged bytes moved at 1.8-2.6 TB/s
+//   (SCAN at p = 8 and 16 with 1 MiB a rank, ALLREDUCE at p = 8 with
+//   25 MiB), and no tile shape, transport or barrier placement tried moved
+//   the 1 MiB cases by more than 15%: that network, not HBM, bounds them.
+//
+// The flags path (p > 16, or p = 1; the ground of the multi-GPU form): a
+// rank's program is a set of thread blocks, each owning tiles of the rank's
+// payload (a grid-stride loop over tiles). For exchange s of tile t, a block
+// stores its accumulator tile into its partner's receive region for
+// exchange s, through a table of p peer pointers (a symmetric layout:
+// every rank's region has the same shape), then raises the partner's
+// signal flag (s, t). Before it reads, the block waits on its own flag
+// (s, t), then masks and combines.
 //   * Co-residency: a block spinning on a flag whose writer is not resident
 //     waits forever, so the launch is cooperative and its grid capped at the
 //     blocks the device holds at once; a launch that cannot be made resident
@@ -43,23 +90,29 @@
 //     times out writes (code, rank, exchange, tile) into a device status
 //     word and leaves; the others see the word and leave too. The wrapper
 //     reads the word after the launch and raises.
-// On one GPU all p ranks run in one launch (blockIdx.y = rank) and the peer
-// tables point into one stacked allocation; given tables of pointers that
-// lie on other GPUs, the same kernel is the multi-GPU form.
+//   On one GPU all p ranks run in one launch (blockIdx.y = rank) and the
+//   peer tables point into one stacked allocation; given tables of pointers
+//   that lie on other GPUs, the same kernel is the multi-GPU form.
 //
 // Bound: memory, like K1 (the same function): p*M*itemsize bytes read per
-// leaf and written once per output stream. Unlike K1, each round also goes
-// through device memory (a put and a read per element) and a flag.
+// leaf and written once per output stream. The cluster path's rounds stay in
+// shared memory; the flags path's go through device memory (a put and a
+// read per element) and a flag.
 
 #include "collective_ops.cuh"
 
 #include <cstring>
+#include <mutex>
 
 using namespace collective;
 
 namespace {
 
-enum Kind { KIND_SCAN = 0, KIND_FUSED = 1, KIND_BUTTERFLY = 2 };
+enum Path { PATH_CLUSTER = 0, PATH_FLAGS = 1 };
+
+// ---------------------------------------------------------------------------
+// the flags path
+// ---------------------------------------------------------------------------
 
 constexpr int BLOCK = 256;  // threads per block
 constexpr int VEC = 4;      // elements a thread carries per tile
@@ -111,7 +164,7 @@ __device__ __forceinline__ unsigned poll_acquire(const unsigned* flag) {
 }
 
 template <typename T, class Op, int KIND>
-__global__ void __launch_bounds__(BLOCK) k2_kernel(Args<T> a) {
+__global__ void __launch_bounds__(BLOCK) k2_flags_kernel(Args<T> a) {
   constexpr int L = Op::L;
   __shared__ int abort_block;
   const int p = a.p;
@@ -277,19 +330,393 @@ __global__ void __launch_bounds__(BLOCK) k2_kernel(Args<T> a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// the cluster path
+// ---------------------------------------------------------------------------
+
+// Design switches of the cluster path (repro_torch.testing.k2_ablation
+// builds the source with each changed and times it):
+//   K2_PUT_BULK          0: st.async, one instruction (and one complete_tx
+//                        on the partner's barrier) per 16 bytes a thread;
+//                        1: one cp.async.bulk a leaf row, from a staging
+//                        row in the sender's shared memory
+//   K2_CLUSTER_THREADS   threads a CTA
+//   K2_SPLIT_SYNC        1: each cluster barrier is split, so that waiting
+//                        on it overlaps other work: the opening one around
+//                        the loads, the closing one (relaxed: it orders no
+//                        memory) around the last combine and the stores;
+//                        0: arrive and wait together, before the loads and
+//                        after the stores
+//   K2_ROW_VECS          16-byte vectors a thread carries a leaf, for every
+//                        type and operator; unset: cl::row_vecs's rule
+#ifndef K2_PUT_BULK
+#define K2_PUT_BULK 0
+#endif
+#ifndef K2_CLUSTER_THREADS
+#define K2_CLUSTER_THREADS 128
+#endif
+#ifndef K2_SPLIT_SYNC
+#define K2_SPLIT_SYNC 1
+#endif
+
+namespace cl {
+
+constexpr int THREADS = K2_CLUSTER_THREADS;  // threads a CTA
+constexpr bool BULK = K2_PUT_BULK != 0;
+constexpr bool SPLIT_SYNC = K2_SPLIT_SYNC != 0;
+constexpr int MAX_RANKS = 16;                // the largest (non-portable) cluster
+
+// 16-byte vectors a thread carries a leaf (spmd_collective.cluster_row_vecs):
+// the most of 4, 2, 1 that keeps L x V <= 6 (at p = 16 a fused phase's 9
+// slots then take at most 108 KiB, so two CTAs share an SM) and the values a
+// thread holds (two streams and the received vectors) within 96
+template <typename T, int L>
+__host__ __device__ constexpr int row_vecs() {
+#ifdef K2_ROW_VECS
+  return K2_ROW_VECS;
+#else
+  int v = 4;
+  while (v > 1 && (L * v > 6 || 3 * L * (16 / (int)sizeof(T)) * v > 96)) v /= 2;
+  return v;
+#endif
+}
+
+// one leaf of one rank row of a tile: V vectors of 16 bytes a thread
+template <typename T, int L>
+__host__ __device__ constexpr int row_bytes() {
+  return THREADS * 16 * row_vecs<T, L>();
+}
+
+// A CTA's shared memory: one mbarrier (8 bytes) a slot, padded to 16 bytes;
+// then slot e, leaf l at bar_bytes + (e * L + l) * row_bytes; with bulk
+// puts, then a staging row set an exchange, laid out as the slots. A slot
+// and a staging row are each written once per launch.
+__host__ __device__ constexpr int bar_bytes(int slots) { return (8 * slots + 15) / 16 * 16; }
+template <typename T, int L>
+__host__ __device__ constexpr int smem_bytes(int slots) {
+  return bar_bytes(slots) + (BULK ? 2 : 1) * slots * L * row_bytes<T, L>();
+}
+
+template <typename T>
+struct Args {
+  const T* x[MAX_LEAVES];  // stacked (p, M) inputs: rank r's row at x + r*M
+  T* y[MAX_LEAVES];        // the phase's output (the scan, or the total)
+  T* t[MAX_LEAVES];        // FUSED only: the axis total
+  long long M;             // elements per leaf and rank
+  long long timeout_cycles;
+  int p;                   // ranks = CTAs of a cluster
+  int slots;               // exchanges of the phase, one slot each
+  int inclusive;
+  int aligned;             // rows start on 16 bytes (M * itemsize too)
+};
+
+__device__ __forceinline__ uint32_t cta_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_x() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return (uint32_t)__cvta_generic_to_shared(ptr);
+}
+// the address of the same shared-memory word in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+// 16 bytes into a peer's shared memory; the store completes its bytes on the
+// peer's barrier (release at cluster scope)
+__device__ __forceinline__ void st_async(uint32_t remote, const uint4& w, uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];" ::"r"(remote),
+      "r"(w.x), "r"(w.y), "r"(w.z), "r"(w.w), "r"(remote_bar)
+      : "memory");
+}
+// a row of the sender's shared memory into a peer's; the bytes complete on
+// the peer's barrier
+[[maybe_unused]] __device__ __forceinline__ void bulk_put(uint32_t remote, uint32_t local,
+                                                          uint32_t bytes, uint32_t remote_bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(remote),
+      "r"(local), "r"(bytes), "r"(remote_bar)
+      : "memory");
+}
+// this thread's shared-memory writes, visible to the bulk copies (the async
+// proxy) that read them after the next barrier
+[[maybe_unused]] __device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(0u)
+      : "memory");
+  return done != 0;
+}
+// returns once the slot's bytes have all arrived (the barrier's first
+// phase); a slot that waits past the deadline lost its sender: trap
+__device__ __forceinline__ void wait_slot(uint32_t bar, long long timeout_cycles) {
+  if (mbar_try_wait(bar)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar))
+    if (clock64() - t0 > timeout_cycles) __trap();
+}
+
+template <typename T, class Op, int KIND>
+__global__ void __launch_bounds__(THREADS, 1) k2_cluster_kernel(Args<T> a) {
+  constexpr int L = Op::L;
+  constexpr int VEC = 16 / sizeof(T);  // elements a 16-byte vector
+  constexpr int VECS = row_vecs<T, L>();
+  constexpr int ROW_BYTES = row_bytes<T, L>();
+  constexpr int TILE = THREADS * VEC * VECS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int p = a.p;
+  const int rank = (int)cta_rank();
+  const long long M = a.M;
+  // vector j of this thread: columns col[j] .. col[j] + VEC of its rank's
+  // row, bytes (j * THREADS + threadIdx.x) * 16 of a slot's leaf row
+  long long col[VECS];
+  bool vec_io[VECS];  // aligned: M % VEC == 0, so a vector lies below M or past it
+  for (int j = 0; j < VECS; ++j) {
+    col[j] = (long long)cluster_x() * TILE + (long long)(j * THREADS + threadIdx.x) * VEC;
+    vec_io[j] = a.aligned && col[j] < M;
+  }
+  const T zero = Num<T>::zero();
+  const uint32_t bars = smem_addr(smem);
+  const int slot0 = bar_bytes(a.slots);
+  const int stage0 = slot0 + a.slots * L * ROW_BYTES;  // bulk puts only
+  int nsteps = 0;
+  while ((1 << nsteps) < p) ++nsteps;
+
+  if (threadIdx.x == 0) {
+    // every slot is written once, whole: arm its barrier for all its bytes
+    for (int e = 0; e < a.slots; ++e) {
+      mbar_init(bars + 8 * e, 1);
+      mbar_expect_tx(bars + 8 * e, L * ROW_BYTES);
+    }
+    fence_mbarrier_init();
+  }
+  // every peer's barriers are armed before any put
+  cluster_arrive_release();
+  if (!SPLIT_SYNC) cluster_wait();
+
+  T acc[2][L][VECS][VEC];  // [stream][leaf][vector][element]: stream 0 prefix, 1 suffix
+  T rv[L][VECS][VEC];
+  T lhs[L], rhs[L], res[L];
+  for (int l = 0; l < L; ++l)
+    for (int j = 0; j < VECS; ++j) {
+      load_row<T, VEC>(a.x[l] + (long long)rank * M, col[j], M, vec_io[j], acc[0][l][j]);
+      for (int v = 0; v < VEC; ++v) acc[1][l][j][v] = acc[0][l][j][v];
+    }
+  if (SPLIT_SYNC) cluster_wait();
+
+  // this thread's vectors of stream s, every leaf, towards slot e of rank
+  // dst: straight into it (st.async), or into staging row e (bulk)
+  auto put = [&](int s, int dst, int e) {
+    for (int l = 0; l < L; ++l)
+      for (int j = 0; j < VECS; ++j) {
+        uint4 w;
+        memcpy(&w, acc[s][l][j], sizeof(w));
+        const int at = (e * L + l) * ROW_BYTES + (j * THREADS + threadIdx.x) * 16;
+        if constexpr (BULK)
+          *reinterpret_cast<uint4*>(smem + stage0 + at) = w;
+        else
+          st_async(mapa(bars + slot0 + at, dst), w, mapa(bars + 8 * e, dst));
+      }
+  };
+  // bulk: once a round's puts are staged, one thread copies each staged
+  // leaf row into its partner's slot (dst1 < 0: one put this round)
+  auto flush = [&](int dst0, int e0, int dst1, int e1) {
+    if constexpr (BULK) {
+      fence_proxy_async();
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        for (int l = 0; l < L; ++l) {
+          const int at0 = (e0 * L + l) * ROW_BYTES;
+          bulk_put(mapa(bars + slot0 + at0, dst0), bars + stage0 + at0, ROW_BYTES,
+                   mapa(bars + 8 * e0, dst0));
+          if (dst1 >= 0) {
+            const int at1 = (e1 * L + l) * ROW_BYTES;
+            bulk_put(mapa(bars + slot0 + at1, dst1), bars + stage0 + at1, ROW_BYTES,
+                     mapa(bars + 8 * e1, dst1));
+          }
+        }
+      }
+    }
+  };
+  // wait for slot e, then read this thread's vectors of every leaf into rv
+  auto receive = [&](int e) {
+    wait_slot(bars + 8 * e, a.timeout_cycles);
+    for (int l = 0; l < L; ++l)
+      for (int j = 0; j < VECS; ++j) {
+        const uint4 w = *reinterpret_cast<const uint4*>(
+            smem + slot0 + (e * L + l) * ROW_BYTES + (j * THREADS + threadIdx.x) * 16);
+        memcpy(rv[l][j], &w, sizeof(w));
+      }
+  };
+  // acc[s] = keep ? combine(rv, acc[s]) : combine(zero, acc[s])  (recv_left)
+  //        or the mirror with recv on the right
+  auto fold = [&](int s, bool keep, bool recv_left) {
+    for (int j = 0; j < VECS; ++j)
+      for (int v = 0; v < VEC; ++v) {
+        for (int l = 0; l < L; ++l) {
+          const T got = keep ? rv[l][j][v] : zero;
+          lhs[l] = recv_left ? got : acc[s][l][j][v];
+          rhs[l] = recv_left ? acc[s][l][j][v] : got;
+        }
+        Op::combine(lhs, rhs, res);
+        for (int l = 0; l < L; ++l) acc[s][l][j][v] = res[l];
+      }
+  };
+  auto store = [&](T* const* out, const T (&vals)[L][VECS][VEC]) {
+    for (int l = 0; l < L; ++l)
+      for (int j = 0; j < VECS; ++j)
+        store_row<T, VEC>(out[l] + (long long)rank * M, col[j], M, vec_io[j], vals[l][j]);
+  };
+
+  int ex = 0;
+  if (KIND == KIND_BUTTERFLY) {
+    for (int k = 0; k < nsteps; ++k, ++ex) {
+      const int d = 1 << k;
+      put(0, rank ^ d, ex);
+      flush(rank ^ d, ex, -1, 0);
+      receive(ex);
+      fold(0, true, (rank & d) != 0);  // partner lower: combine(recv, acc)
+    }
+  } else {
+    if (!a.inclusive) {
+      // structural entry shift: rank r starts from x_{r-1}, rank 0 from zero
+      put(0, (rank + 1) % p, ex);
+      flush((rank + 1) % p, ex, -1, 0);
+      receive(ex);
+      for (int l = 0; l < L; ++l)
+        for (int j = 0; j < VECS; ++j)
+          for (int v = 0; v < VEC; ++v) acc[0][l][j][v] = rank >= 1 ? rv[l][j][v] : zero;
+      ++ex;
+    }
+    for (int k = 0; k < nsteps; ++k) {
+      const int d = 1 << k;
+      const int up = (rank + d) % p, down = (rank - d + p) % p;
+      put(0, up, ex);
+      // full duplex: both streams' puts before either wait
+      if (KIND == KIND_FUSED) put(1, down, ex + 1);
+      flush(up, ex, KIND == KIND_FUSED ? down : -1, ex + 1);
+      receive(ex);
+      fold(0, rank >= d, true);
+      if (KIND == KIND_FUSED) {
+        receive(ex + 1);
+        fold(1, rank < p - d, false);
+      }
+      ex += KIND == KIND_FUSED ? 2 : 1;
+    }
+  }
+
+  // After its last receive no peer addresses this CTA's shared memory: the
+  // closing barrier (no CTA leaves while a peer may still write into its
+  // slots) can be entered here and left at the end.
+  if (KIND != KIND_FUSED) {
+    if (SPLIT_SYNC) cluster_arrive_relaxed();
+    store(a.y, acc[0]);
+  } else {
+    // fused exits: inclusive total = combine(pre, suffix of rank r+1 or
+    // zero); exclusive total = combine(pre, suf) and rank 0's scan is zero
+    if (a.inclusive) {
+      put(1, (rank - 1 + p) % p, ex);
+      flush((rank - 1 + p) % p, ex, -1, 0);
+      receive(ex);
+    }
+    if (SPLIT_SYNC) cluster_arrive_relaxed();
+    if (!a.inclusive) {
+      for (int l = 0; l < L; ++l)
+        for (int j = 0; j < VECS; ++j)
+          for (int v = 0; v < VEC; ++v) rv[l][j][v] = acc[1][l][j][v];
+    }
+    const bool keep = a.inclusive ? rank < p - 1 : true;
+    const bool scan_kept = a.inclusive || rank != 0;
+    T tot[L][VECS][VEC];
+    for (int j = 0; j < VECS; ++j)
+      for (int v = 0; v < VEC; ++v) {
+        for (int l = 0; l < L; ++l) {
+          lhs[l] = acc[0][l][j][v];
+          rhs[l] = keep ? rv[l][j][v] : zero;
+        }
+        Op::combine(lhs, rhs, res);
+        for (int l = 0; l < L; ++l) {
+          tot[l][j][v] = res[l];
+          if (!scan_kept) acc[0][l][j][v] = zero;
+        }
+      }
+    store(a.t, tot);
+    store(a.y, acc[0]);
+  }
+  if (!SPLIT_SYNC) cluster_arrive_release();
+  cluster_wait();  // no CTA leaves while a peer may still address its slots
+}
+
+}  // namespace cl
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
 constexpr int NUM_DTYPES = 5, NUM_OPS = 6, NUM_KINDS = 3;
 
+// exchanges one rank makes in a phase (spmd_collective.exchanges)
+int exchanges(int kind, int p, int inclusive) {
+  int steps = 0;
+  while ((1 << steps) < p) ++steps;
+  if (kind == KIND_BUTTERFLY) return steps;
+  if (kind == KIND_SCAN) return steps + (inclusive ? 0 : 1);
+  return 2 * steps + 1;
+}
+
 // What the launch needs to know of the device, queried once per device: the
-// queries cost milliseconds a call, many times the kernel itself. per_sm is
-// the resident blocks per SM of each kernel instantiation, indexed by
-// (dtype, op, kind) code and filled at that instantiation's first launch.
+// queries cost milliseconds a call, many times the kernel itself. Filled at
+// each kernel instantiation's first launch: per_sm, the flags kernel's
+// resident blocks per SM by (dtype, op, kind); clusters, one more than the
+// clusters of the cluster kernel that fit at once, by (dtype, op, kind,
+// inclusive, p), 0 while unknown; smem, the dynamic shared memory the
+// cluster kernel of (dtype, op, kind) may use so far.
 struct DeviceInfo {
   int sms = 0, coop = 0, khz = 0;
   bool ready = false;
   int per_sm[NUM_DTYPES][NUM_OPS][NUM_KINDS] = {};
+  int clusters[NUM_DTYPES][NUM_OPS][NUM_KINDS][2][cl::MAX_RANKS + 1] = {};
+  int smem[NUM_DTYPES][NUM_OPS][NUM_KINDS] = {};
 };
 
 constexpr int MAX_DEVICES = 64;
+std::mutex info_lock;  // ctypes drops the GIL: callers may race on the caches
 
 cudaError_t device_info(DeviceInfo** out) {
   static DeviceInfo cache[MAX_DEVICES];
@@ -310,122 +737,242 @@ cudaError_t device_info(DeviceInfo** out) {
   return cudaSuccess;
 }
 
-// the launch context every level below k2_spmd_comm passes down
-struct Launch {
-  const DeviceInfo& info;
-  int* per_sm;  // DeviceInfo::per_sm slot of the (dtype, op, kind) launched
+// one launch as the entry received it, passed down every level below it
+struct Call {
+  int path, kind, op, dtype, inclusive, p, aligned, shared_bytes;
+  long long M, tile, ntiles, timeout_cycles;
+  const void* x[MAX_LEAVES];
+  void* y[MAX_LEAVES];
+  void* t[MAX_LEAVES];
+  void* recv;
+  void* flags;
+  void* status;
+  unsigned epoch;
   cudaStream_t stream;
+  DeviceInfo* info;
+  int* made;  // kernels launched, each counted once cudaGetLastError() passed it
 };
 
-template <typename T, class Op, int KIND>
-int launch_kind(const Args<T>& args, const Launch& c) {
-  const void* fn = reinterpret_cast<const void*>(&k2_kernel<T, Op, KIND>);
-  if (*c.per_sm == 0) {
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(c.per_sm, fn, BLOCK, 0);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (!c.info.coop) return -4;
-  const long long resident = (long long)*c.per_sm * c.info.sms;
-  if (args.p > resident || args.p > 65535) return -3;  // ranks cannot all be resident
-  long long per_rank = resident / args.p;
-  if (per_rank > args.ntiles) per_rank = args.ntiles;
-  Args<T> a = args;
-  void* params[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      fn, dim3((unsigned)per_rank, (unsigned)args.p), dim3(BLOCK), params, 0, c.stream);
-  cudaGetLastError();  // clear the launch's error so later calls do not see it
+int launched(const Call& c) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++*c.made;
   return (int)err;
 }
 
-template <typename T, class Op>
-int launch_op(int kind, const Args<T>& args, const Launch& c) {
-  switch (kind) {
-    case KIND_SCAN: return launch_kind<T, Op, KIND_SCAN>(args, c);
-    case KIND_FUSED: return launch_kind<T, Op, KIND_FUSED>(args, c);
-    case KIND_BUTTERFLY: return launch_kind<T, Op, KIND_BUTTERFLY>(args, c);
-    default: return -1;
-  }
-}
-
-template <typename T>
-int launch_float_ops(int kind, int op, const Args<T>& a, const Launch& c) {
-  switch (op) {
-    case OP_SUM: return launch_op<T, OpSum<T>>(kind, a, c);
-    case OP_PROD: return launch_op<T, OpProd<T>>(kind, a, c);
-    case OP_MAX: return launch_op<T, OpMax<T>>(kind, a, c);
-    case OP_MIN: return launch_op<T, OpMin<T>>(kind, a, c);
-    case OP_SSD: return launch_op<T, OpSsd<T>>(kind, a, c);
-    case OP_FLASH: return launch_op<T, OpFlash<T>>(kind, a, c);
-    default: return -1;
-  }
-}
-
-template <typename T>
-int launch_int_ops(int kind, int op, const Args<T>& a, const Launch& c) {
-  switch (op) {
-    case OP_SUM: return launch_op<T, OpSum<T>>(kind, a, c);
-    case OP_PROD: return launch_op<T, OpProd<T>>(kind, a, c);
-    case OP_MAX: return launch_op<T, OpMax<T>>(kind, a, c);
-    case OP_MIN: return launch_op<T, OpMin<T>>(kind, a, c);
-    default: return -1;
-  }
-}
-
-template <typename T>
-Args<T> make_args(int p, long long M, int inclusive, const void* const* x, void* const* y,
-                  void* const* t, void* recv, void* flags, void* status, unsigned epoch,
-                  long long timeout_cycles) {
+template <typename T, class Op, int KIND>
+int launch_flags(const Call& c) {
   Args<T> a;
   for (int l = 0; l < MAX_LEAVES; ++l) {
-    a.x[l] = static_cast<const T*>(x[l]);
-    a.y[l] = static_cast<T*>(y[l]);
-    a.t[l] = static_cast<T*>(t[l]);
+    a.x[l] = static_cast<const T*>(c.x[l]);
+    a.y[l] = static_cast<T*>(c.y[l]);
+    a.t[l] = static_cast<T*>(c.t[l]);
   }
-  a.recv = static_cast<T* const*>(recv);
-  a.flags = static_cast<unsigned* const*>(flags);
-  a.status = static_cast<int*>(status);
-  a.M = M;
-  a.ntiles = (M + TILE - 1) / TILE;
-  a.timeout_cycles = timeout_cycles;
-  a.epoch = epoch;
-  a.p = p;
-  a.inclusive = inclusive;
-  return a;
+  a.recv = static_cast<T* const*>(c.recv);
+  a.flags = static_cast<unsigned* const*>(c.flags);
+  a.status = static_cast<int*>(c.status);
+  a.M = c.M;
+  a.ntiles = c.ntiles;
+  a.timeout_cycles = c.timeout_cycles;
+  a.epoch = c.epoch;
+  a.p = c.p;
+  a.inclusive = c.inclusive;
+  const void* fn = reinterpret_cast<const void*>(&k2_flags_kernel<T, Op, KIND>);
+  int& per_sm = c.info->per_sm[c.dtype][c.op][c.kind];
+  {
+    std::lock_guard<std::mutex> hold(info_lock);
+    if (per_sm == 0) {
+      cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, BLOCK, 0);
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  if (!c.info->coop) return -4;
+  const long long resident = (long long)per_sm * c.info->sms;
+  if (a.p > resident || a.p > 65535) return -3;  // ranks cannot all be resident
+  long long per_rank = resident / a.p;
+  if (per_rank > a.ntiles) per_rank = a.ntiles;
+  void* params[] = {&a};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      fn, dim3((unsigned)per_rank, (unsigned)a.p), dim3(BLOCK), params, 0, c.stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear the launch's error so later calls do not see it
+    return (int)err;
+  }
+  return launched(c);
+}
+
+template <typename T, class Op, int KIND>
+int launch_cluster(const Call& c) {
+  cl::Args<T> a;
+  for (int l = 0; l < MAX_LEAVES; ++l) {
+    a.x[l] = static_cast<const T*>(c.x[l]);
+    a.y[l] = static_cast<T*>(c.y[l]);
+    a.t[l] = static_cast<T*>(c.t[l]);
+  }
+  a.M = c.M;
+  a.timeout_cycles = c.timeout_cycles;
+  a.p = c.p;
+  a.slots = exchanges(c.kind, c.p, c.inclusive);
+  a.inclusive = c.inclusive;
+  a.aligned = c.aligned;
+  if (c.tile != (long long)cl::row_bytes<T, Op::L>() / (long long)sizeof(T) ||
+      c.shared_bytes != cl::smem_bytes<T, Op::L>(a.slots))
+    return -1;
+  const long long grid = (long long)c.p * c.ntiles;
+  if (c.p < 2 || c.p > cl::MAX_RANKS || grid > 0x7fffffffLL) return -2;
+  auto kernel = cl::k2_cluster_kernel<T, Op, KIND>;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)c.p;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(cl::THREADS);
+  cfg.dynamicSmemBytes = (size_t)c.shared_bytes;
+  cfg.stream = c.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  {
+    std::lock_guard<std::mutex> hold(info_lock);
+    int& smem = c.info->smem[c.dtype][c.op][c.kind];
+    if (smem < c.shared_bytes) {
+      // clusters of 9-16 CTAs are beyond the portable 8, and above 48 KiB
+      // dynamic shared memory needs the opt-in
+      cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   c.shared_bytes);
+      if (err != cudaSuccess) return (int)err;
+      smem = c.shared_bytes;
+    }
+    int& fit = c.info->clusters[c.dtype][c.op][c.kind][c.inclusive ? 1 : 0][c.p];
+    if (fit == 0) {
+      int n = 0;
+      cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+      if (err != cudaSuccess) {
+        cudaGetLastError();
+        return (int)err;
+      }
+      fit = n + 1;
+    }
+    if (fit == 1) return -3;  // no cluster of p CTAs can be resident
+  }
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  return launched(c);
+}
+
+template <typename T, class Op>
+int launch_op(const Call& c) {
+  switch (c.path * NUM_KINDS + c.kind) {
+    case PATH_CLUSTER * NUM_KINDS + KIND_SCAN: return launch_cluster<T, Op, KIND_SCAN>(c);
+    case PATH_CLUSTER * NUM_KINDS + KIND_FUSED: return launch_cluster<T, Op, KIND_FUSED>(c);
+    case PATH_CLUSTER * NUM_KINDS + KIND_BUTTERFLY: return launch_cluster<T, Op, KIND_BUTTERFLY>(c);
+    case PATH_FLAGS * NUM_KINDS + KIND_SCAN: return launch_flags<T, Op, KIND_SCAN>(c);
+    case PATH_FLAGS * NUM_KINDS + KIND_FUSED: return launch_flags<T, Op, KIND_FUSED>(c);
+    case PATH_FLAGS * NUM_KINDS + KIND_BUTTERFLY: return launch_flags<T, Op, KIND_BUTTERFLY>(c);
+    default: return -1;
+  }
+}
+
+template <typename T>
+int launch_float_ops(const Call& c) {
+  switch (c.op) {
+    case OP_SUM: return launch_op<T, OpSum<T>>(c);
+    case OP_PROD: return launch_op<T, OpProd<T>>(c);
+    case OP_MAX: return launch_op<T, OpMax<T>>(c);
+    case OP_MIN: return launch_op<T, OpMin<T>>(c);
+    case OP_SSD: return launch_op<T, OpSsd<T>>(c);
+    case OP_FLASH: return launch_op<T, OpFlash<T>>(c);
+    default: return -1;
+  }
+}
+
+template <typename T>
+int launch_int_ops(const Call& c) {
+  switch (c.op) {
+    case OP_SUM: return launch_op<T, OpSum<T>>(c);
+    case OP_PROD: return launch_op<T, OpProd<T>>(c);
+    case OP_MAX: return launch_op<T, OpMax<T>>(c);
+    case OP_MIN: return launch_op<T, OpMin<T>>(c);
+    default: return -1;
+  }
 }
 
 }  // namespace
 
-// Elements a block's tile covers: the wrapper sizes the flag regions
-// (exchanges x ceil(M / tile) per rank) with it.
-extern "C" int k2_tile_elems() { return TILE; }
-
-// Launch one comm phase for all p co-resident ranks. recv and flags are
-// device tables of p pointers (rank q's receive region and flags), status a
-// device int[4]. Returns 0 on a launched kernel, -1 for a (kind, op, dtype)
-// the kernel does not take, -3 when the ranks cannot all be resident, -4 when
-// the device has no cooperative launch, else the CUDA error of the launch.
-extern "C" int k2_spmd_comm(int kind, int op, int dtype, int inclusive, int p, long long M,
+// Launch one comm phase for all p co-resident ranks on the path
+// spmd_collective.plan_launch chose (0 cluster, 1 flags), whose tile and
+// shared bytes the entry checks against its own. The flags path takes recv
+// and flags, device tables of p pointers (rank q's receive region and
+// flags), and status, a device int[4]; the cluster path takes none of them
+// (null). aligned: every row of x, y and t starts on 16 bytes. Returns 0 on a
+// launched kernel, -1 for a (path, kind, op, dtype), tile or shared size the
+// kernels do not take, -2 for a grid they cannot cover, -3 when the ranks
+// cannot all be resident, -4 when the device has no cooperative launch,
+// else the CUDA error of the launch. *launches is set to the kernels
+// launched, each counted once cudaGetLastError() has passed its launch.
+extern "C" int k2_spmd_comm(int path, int kind, int op, int dtype, int inclusive, int p,
+                            long long M, long long tile, int shared_bytes, int aligned,
                             const void* x0, const void* x1, const void* x2, void* y0, void* y1,
                             void* y2, void* t0, void* t1, void* t2, void* recv, void* flags,
-                            void* status, unsigned epoch, double timeout_s, void* stream) {
+                            void* status, unsigned epoch, double timeout_s, void* stream,
+                            int* launches) {
+  *launches = 0;
+  if (dtype < 0 || dtype >= NUM_DTYPES || op < 0 || op >= NUM_OPS || kind < 0 ||
+      kind >= NUM_KINDS || p < 1 || M <= 0)
+    return -1;
+  // the cluster path's tile and shared bytes depend on the type and
+  // operator: launch_cluster checks them
+  if (path == PATH_FLAGS) {
+    if (tile != TILE || shared_bytes != 0) return -1;
+  } else if (path != PATH_CLUSTER || tile <= 0) {
+    return -1;
+  }
+  DeviceInfo* info = nullptr;
+  {
+    std::lock_guard<std::mutex> hold(info_lock);
+    cudaError_t err = device_info(&info);
+    if (err != cudaSuccess) return (int)err;
+  }
+  Call c;
+  c.path = path;
+  c.kind = kind;
+  c.op = op;
+  c.dtype = dtype;
+  c.inclusive = inclusive;
+  c.p = p;
+  c.aligned = aligned;
+  c.shared_bytes = shared_bytes;
+  c.M = M;
+  c.tile = tile;
+  c.ntiles = (M + tile - 1) / tile;
+  c.timeout_cycles = (long long)(timeout_s * 1e3 * (double)info->khz);
   const void* x[MAX_LEAVES] = {x0, x1, x2};
   void* y[MAX_LEAVES] = {y0, y1, y2};
   void* t[MAX_LEAVES] = {t0, t1, t2};
-  if (dtype < 0 || dtype >= NUM_DTYPES || op < 0 || op >= NUM_OPS || kind < 0 || kind >= NUM_KINDS)
-    return -1;
-  DeviceInfo* info = nullptr;
-  cudaError_t err = device_info(&info);
-  if (err != cudaSuccess) return (int)err;
-  const Launch c{*info, &info->per_sm[dtype][op][kind], static_cast<cudaStream_t>(stream)};
-  const long long cycles = (long long)(timeout_s * 1e3 * (double)info->khz);
-#define K2_ARGS(T) make_args<T>(p, M, inclusive, x, y, t, recv, flags, status, epoch, cycles), c
+  for (int l = 0; l < MAX_LEAVES; ++l) {
+    c.x[l] = x[l];
+    c.y[l] = y[l];
+    c.t[l] = t[l];
+  }
+  c.recv = recv;
+  c.flags = flags;
+  c.status = status;
+  c.epoch = epoch;
+  c.stream = static_cast<cudaStream_t>(stream);
+  c.info = info;
+  c.made = launches;
   switch (dtype) {
-    case DT_FLOAT32: return launch_float_ops<float>(kind, op, K2_ARGS(float));
-    case DT_BFLOAT16: return launch_float_ops<__nv_bfloat16>(kind, op, K2_ARGS(__nv_bfloat16));
-    case DT_FLOAT16: return launch_float_ops<__half>(kind, op, K2_ARGS(__half));
-    case DT_INT32: return launch_int_ops<int32_t>(kind, op, K2_ARGS(int32_t));
-    case DT_INT8: return launch_int_ops<int8_t>(kind, op, K2_ARGS(int8_t));
+    case DT_FLOAT32: return launch_float_ops<float>(c);
+    case DT_BFLOAT16: return launch_float_ops<__nv_bfloat16>(c);
+    case DT_FLOAT16: return launch_float_ops<__half>(c);
+    case DT_INT32: return launch_int_ops<int32_t>(c);
+    case DT_INT8: return launch_int_ops<int8_t>(c);
     default: return -1;
   }
-#undef K2_ARGS
 }

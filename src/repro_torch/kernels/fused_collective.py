@@ -15,8 +15,12 @@ Three layers, as for every kernel of the port:
   the stacked tensors (shift = ``recv[d:] = acc[:-d]`` with zero fill,
   butterfly = block swaps). The CPU path and the tests use it.
 * :func:`comm_phase` — the wrapper. A CPU tensor takes the plain version; a
-  CUDA tensor launches the kernel or raises (a build or launch failure
-  raises too). :data:`launches` counts kernel launches.
+  CUDA tensor launches the kernel on the path :func:`plan_launch` picks
+  (``register`` for 2 <= p <= 16, the column tile in registers; ``column``
+  otherwise, the PR 13 kernel with the column in shared memory or global
+  scratch) or raises (a build or launch failure raises too).
+  :data:`launches` counts the launches the C entry reports, and
+  :data:`path_launches` the same by path.
 * :func:`lower_fused` — the plan lowering the registry's fused backend
   (registered under the wire name ``"pallas"``) returns, the counterpart of
   ``lower_pallas``: without ``axis_names`` over stacked leaves with one K1
@@ -31,6 +35,8 @@ reason tokens.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -68,6 +74,8 @@ _COMM_KINDS = (
 #: kernel launches since import (the main path's proof that it ran K1);
 #: comparison launches by a caller are that caller's to discount
 launches = 0
+#: the same launches by path
+path_launches = {"register": 0, "column": 0}
 
 # codes of csrc/fused_collective.cu
 _KIND_CODES = {
@@ -95,8 +103,15 @@ _DTYPE_CODES = {
 }
 #: leaf pointers per stream the kernels' C interfaces take
 MAX_LEAVES = 3
-#: the kernel keeps each thread's column in shared memory up to this many
-#: bytes per block (no opt-in attribute needed); beyond, global scratch
+_PATH_CODES = {"register": 0, "column": 1}
+#: ranks the register path takes, and the row counts it is compiled for
+REGISTER_P_MAX = (2, 4, 8, 16)
+REGISTER_THREADS = 128
+#: values of the leaf type a register-path thread may keep (streams x
+#: leaves x P_MAX x VEC); more would spill
+REGISTER_BUDGET = 128
+#: the column path keeps each thread's column in shared memory up to this
+#: many bytes per block (no opt-in attribute needed); beyond, global scratch
 _SMEM_LIMIT = 48 * 1024
 _BLOCKS = (256, 128, 64, 32)
 
@@ -271,19 +286,86 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("fused_collective")
     fn = lib.k1_fused_comm
-    fn.argtypes = (
-        [ctypes.c_int] * 5
-        + [ctypes.c_longlong]
-        + [ctypes.c_void_p] * 10
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:  # first use: declare the signature
+        fn.argtypes = (
+            [ctypes.c_int] * 6
+            + [ctypes.c_longlong]
+            + [ctypes.c_int] * 4
+            + [ctypes.c_void_p] * 11
+            + [ctypes.POINTER(ctypes.c_int)]
+        )
+        fn.restype = ctypes.c_int
     return lib
+
+
+def register_vec(kind: PhaseKind, itemsize: int, n_leaves: int,
+                 p_max: int) -> int:
+    """Columns a register-path thread owns: 16 bytes of the leaf type,
+    halved while the thread would keep more than :data:`REGISTER_BUDGET`
+    values (the kernel's ``reg::vec_for``)."""
+    vec = 16 // itemsize
+    streams = 2 if kind == PhaseKind.FUSED_SCAN_TOTAL else 1
+    while vec > 1 and streams * n_leaves * p_max * vec > REGISTER_BUDGET:
+        vec //= 2
+    return vec
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one K1 call runs: its path, block, grid and buffers."""
+
+    path: str        # "register" or "column"
+    block: int       # threads a block
+    grid: int        # blocks (grid.x)
+    p_max: int       # register path: rows compiled for (0 on the column path)
+    vec: int         # columns a thread (1 on the column path)
+    smem_bytes: int  # column path: a block's shared column buffer
+    scratch: int     # column path: elements of global scratch (0: shared)
+    launches: int
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_launch(
+    kind: PhaseKind, p: int, M: int, dtype: torch.dtype, n_leaves: int,
+    aligned: bool, *, path: Optional[str] = None,
+) -> LaunchPlan:
+    """The path, block and grid of one K1 call over ``(p, M)`` rows of
+    ``n_leaves`` leaves; ``aligned`` says every row starts on 16 bytes.
+    ``register`` for 2 <= p <= 16 (VEC = 1 for rows not aligned), else
+    ``column``. :func:`_launch` follows it; the C entry checks it. ``path``
+    names a path to take instead, for a comparison of the two."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"the fused kernel takes {sorted(map(str, _DTYPE_CODES))}; got {dtype}"
+        )
+    fits = 2 <= p <= REGISTER_P_MAX[-1]
+    if path is None:
+        path = "register" if fits else "column"
+    if path not in _PATH_CODES or (path == "register" and not fits):
+        raise ValueError(f"K1 has no {path!r} path for p={p}")
+    launches_ = 1 if M > 0 else 0
+    if path == "register":
+        p_max = next(n for n in REGISTER_P_MAX if n >= p)
+        vec = register_vec(kind, dtype.itemsize, n_leaves, p_max) if aligned else 1
+        per_block = REGISTER_THREADS * vec
+        return LaunchPlan("register", REGISTER_THREADS, -(-M // per_block),
+                          p_max, vec, 0, 0, launches_)
+    streams = 2 if kind == PhaseKind.FUSED_SCAN_TOTAL else 1
+    for block in _BLOCKS:
+        smem = streams * n_leaves * p * block * dtype.itemsize
+        if smem <= _SMEM_LIMIT:
+            return LaunchPlan("column", block, -(-M // block), 0, 1, smem, 0,
+                              launches_)
+    block = _BLOCKS[0]
+    return LaunchPlan("column", block, -(-M // block), 0, 1, 0,
+                      streams * n_leaves * p * M, launches_)
 
 
 def _unbroadcast(out: torch.Tensor, shape: torch.Size) -> torch.Tensor:
     """Undo the launch-time broadcast of one leaf: its result values are
     copies along the broadcast dims, so index them away."""
+    if out.shape == shape:
+        return out
     extra = out.ndim - len(shape)
     idx = (0,) * extra + tuple(
         slice(0, 1) if s == 1 and o != 1 else slice(None)
@@ -365,54 +447,58 @@ def _dispatch(kind: PhaseKind, op: AssocOp, tree: PyTree, launch):
     return tree_unflatten(ys, spec), tree_unflatten(ts, spec)
 
 
+def aligned_rows(tensors: List[torch.Tensor], M: int) -> bool:
+    """Does every ``(p, M)`` row of ``tensors`` start on 16 bytes?"""
+    return (M * tensors[0].element_size()) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors
+    )
+
+
 def _launch(
     kind: PhaseKind, p: int, op: AssocOp, leaves: List[torch.Tensor],
-    inclusive: bool,
+    inclusive: bool, path: Optional[str],
 ) -> Tuple[List[torch.Tensor], Optional[List[torch.Tensor]]]:
     global launches
     op_code, flat, ys, ts, back = _stage(kind, p, op, leaves, "fused kernel")
-    n_leaves = len(flat)
     dtype, device = flat[0].dtype, flat[0].device
     M = flat[0].shape[1]
+    plan = plan_launch(kind, p, M, dtype, len(flat),
+                       aligned_rows(flat + ys + (ts or []), M), path=path)
     if M > 0:
         lib = _library()
-        streams = 2 if ts is not None else 1
-        item = flat[0].element_size()
         scratch = None
-        for block in _BLOCKS:
-            smem = streams * n_leaves * p * block * item
-            if smem <= _SMEM_LIMIT:
-                break
-        else:
-            block, smem = _BLOCKS[0], 0
-            scratch = torch.empty(
-                streams * n_leaves * p * M, dtype=dtype, device=device
-            )
-
+        if plan.scratch:
+            scratch = torch.empty(plan.scratch, dtype=dtype, device=device)
+        made = ctypes.c_int(0)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = lib.k1_fused_comm(
-                _KIND_CODES[kind], op_code, _DTYPE_CODES[dtype],
-                int(inclusive), p, M,
+                _PATH_CODES[plan.path], _KIND_CODES[kind], op_code,
+                _DTYPE_CODES[dtype], int(inclusive), p, M, plan.p_max,
+                plan.vec, plan.block, plan.smem_bytes,
                 *_pointers(flat), *_pointers(ys), *_pointers(ts),
                 None if scratch is None else scratch.data_ptr(),
-                block, smem, stream,
+                stream, ctypes.byref(made),
             )
+        launches += made.value
+        path_launches[plan.path] += made.value
         if rc != 0:
             raise RuntimeError(
-                f"fused collective kernel launch failed (code {rc}) for "
-                f"{kind.name} op={op.name} dtype={dtype} p={p} M={M}"
+                f"fused collective kernel launch failed (code {rc}) on the "
+                f"{plan.path} path for {kind.name} op={op.name} dtype={dtype} "
+                f"p={p} M={M}"
             )
-        launches += 1
     return back(ys), (back(ts) if ts is not None else None)
 
 
 def comm_phase(
     kind: PhaseKind, p: int, op: AssocOp, tree: PyTree, *,
-    inclusive: bool = True,
+    inclusive: bool = True, path: Optional[str] = None,
 ):
     """Run one comm phase: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors (no fallback between the two)."""
+    kernel on the path :func:`plan_launch` picks for CUDA tensors (no
+    fallback between the two). ``path`` names a path to take instead, for a
+    comparison of the two."""
     leaves = tree_leaves(tree)
     if not leaves or leaves[0].device.type == "cpu":
         return comm_phase_plain(kind, p, op, tree, inclusive=inclusive)
@@ -423,7 +509,8 @@ def comm_phase(
     if _KIND_CODES[kind] == 2:
         _check_pow2(kind, p)
     return _dispatch(
-        kind, op, tree, lambda group: _launch(kind, p, op, group, inclusive)
+        kind, op, tree,
+        lambda group: _launch(kind, p, op, group, inclusive, path),
     )
 
 

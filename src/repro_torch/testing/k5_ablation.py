@@ -95,8 +95,8 @@ def serialized_notes(log: str) -> list:
     return notes
 
 
-def device_us(fn, iters: int, launches: int):
-    """Device µs per call of the kernels named ``k5_flash_kernel*``, and the
+def device_us(fn, iters: int, launches: int, name: str = "k5_flash_kernel"):
+    """Device µs per call of the kernels whose name holds ``name``, and the
     number of those kernels the trace holds. A trace that holds fewer than
     the ``iters * launches`` made is taken again, up to twice; the last one
     is returned either way, so the caller sees a short trace."""
@@ -112,7 +112,7 @@ def device_us(fn, iters: int, launches: int):
             torch.cuda.synchronize()
         total, seen = 0.0, 0
         for evt in prof.key_averages():
-            if "k5_flash_kernel" in evt.key:
+            if name in evt.key:
                 t = getattr(evt, "device_time_total", None)
                 total += getattr(evt, "cuda_time_total", 0.0) if t is None else t
                 seen += evt.count
