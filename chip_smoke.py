@@ -9,8 +9,8 @@ non-zero without printing a result:
 1. device   — the card, its power limit, TF32 off, every kernel library
               built from ``src/repro_torch/kernels/csrc`` with nvcc (one nvcc
               per source, all started together), ptxas registers and spills
-              (of every K1, K2 and K5 kernel; a spill in K1's register path
-              or K2's cluster path fails the run).
+              (of every K1, K2, K4 and K5 kernel; a spill in K1's register
+              path, K2's cluster path or K4's chunked path fails the run).
 2. kernel   — K1 (the fused collective kernel) against its plain PyTorch
               version on the card, for every phase kind, operator and wire
               dtype, over rank counts of its register path (p <= 16) and
@@ -24,7 +24,11 @@ non-zero without printing a result:
               its decode, tensor-core and float32 paths in float32, bf16 and
               fp16, each output row also held to a limit relative to its
               norm, and the launches each call reports having made (counted
-              in C after each launch) held to ``plan_launch``'s.
+              in C after each launch) held to ``plan_launch``'s; K4 on its
+              chunked and column paths over ragged T and D in every dtype,
+              views off the vector alignment, broadcast h0, the exact
+              a = b = 1 case at T = 4096 (bitwise), 20 back-to-back calls
+              and calls on two streams, launches by path held to the plan.
 4. main     — the offload path: ``OffloadEngine()`` (on the GPU by default)
               -> ``make_descriptor(..., backend="pallas", chunks=1)`` ->
               ``offload`` for SCAN, EXSCAN, ALLREDUCE and BARRIER at p = 8 and
@@ -36,11 +40,11 @@ non-zero without printing a result:
 5. entry    — the on-chip entry points at full width: Mamba2-130m's segment
               scan, OLMoE's expert offsets, memory-bound (8192, 8192) scans,
               Mamba2-130m's SSD recurrence, SmolLM-360M and Gemma3-27B
-              attention and a decode step. The launch counts of K3, K4 and K5
-              are zeroed right before and read right after (one a call for
-              K3 and K4; for K5 the launches its C entry reports, held to
-              ``plan_launch``'s count); each result is held against its plain
-              version.
+              attention and a decode step. The launch counts of K3, K4 (also
+              by path) and K5 are zeroed right before and read right after
+              (one a call for K3 and K4; for K5 the launches its C entry
+              reports, held to ``plan_launch``'s count); each result is held
+              against its plain version.
 6. spmd     — the per-rank path: K2 (the per-rank collective kernel)
               through ``get_backend("pallas").lower(plan, op,
               axis_names=("i",))`` under the port's ``shard_map`` on
@@ -68,8 +72,11 @@ non-zero without printing a result:
               memory bandwidth or peak rate allows; K1's register and K2's
               cluster path each beside the PR 13 path (named explicitly,
               timed in turns) at SCAN p = 8 and 16, 1 MiB per rank, and a
-              25 MiB ALLREDUCE; and the engine's driver-mode dispatch
-              latency beside sim mode's.
+              25 MiB ALLREDUCE; the engine's driver-mode dispatch latency
+              beside sim mode's; and K4's chunked path beside its column
+              path (the first port's kernel), in turns, at Mamba2-130m's
+              SSD shape in float32 and bf16, with the same-bytes time of
+              ``torch.add(a, b, out=h)``.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is the result object.
@@ -107,6 +114,8 @@ CSRC = "src/repro_torch/kernels/csrc"
 #: the kernel of each K1 / K2 path, as the profiler and ptxas name it
 PATH_KERNELS = {"register": "k1_register_kernel", "column": "k1_column_kernel",
                 "cluster": "k2_cluster_kernel", "flags": "k2_flags_kernel"}
+#: the kernel of each K4 path
+K4_KERNELS = {"chunked": "k4_chunked_kernel", "column": "k4_column_kernel"}
 #: (name in the kernels line, CUDA source, TPU kernel it replaces, the
 #: kernel's function name as the profiler lists it)
 KERNELS = {
@@ -116,8 +125,10 @@ KERNELS = {
            "src/repro/kernels/pallas_collective.py:180", "k2_cluster_kernel"),
     "k3": ("k3_prefix_scan", "prefix_scan",
            "src/repro/kernels/prefix_scan.py:45", "k3_scan_kernel"),
+    # K4's device time counts every activity of the call: the kernel and
+    # the memset of its look-back's status words
     "k4": ("k4_ssd_scan", "ssd_scan",
-           "src/repro/kernels/ssd_scan.py:33", "k4_ssd_kernel"),
+           "src/repro/kernels/ssd_scan.py:33", None),
     "k5": ("k5_flash_attention", "flash_attention",
            "src/repro/kernels/flash_attention.py:27", "k5_flash_kernel"),
 }
@@ -332,11 +343,14 @@ def phase_device(torch):
                              ("k1_register_kernel", "k1_column_kernel"))
     k2_kernels = ptxas_paths(_build.build_log("spmd_collective"),
                              ("k2_cluster_kernel", "k2_flags_kernel"))
+    k4_kernels = ptxas_paths(_build.build_log("ssd_scan"), tuple(K4_KERNELS.values()))
     # the register and cluster kernels shrink VEC (or keep one row) so that
-    # nothing spills; a build loaded from an earlier run has no log to read
-    for table in (k1_kernels, k2_kernels):
+    # nothing spills, and K4's chunked kernel holds its steps in registers;
+    # a build loaded from an earlier run has no log to read
+    for table in (k1_kernels, k2_kernels, k4_kernels):
         spilling = [k for k, (_, spill) in table.items()
-                    if ("register" in k or "cluster" in k) and spill]
+                    if ("register" in k or "cluster" in k or "chunked" in k)
+                    and spill]
         if spilling:
             raise AssertionError(f"ptxas spills in {spilling[:5]}")
     name = torch.cuda.get_device_name(0)
@@ -350,11 +364,12 @@ def phase_device(torch):
         "libraries": [str(p.relative_to(REPO)) for p in paths.values()],
         "build_s": round(build_s, 3),
         "ptxas": ptxas,
-        # [registers, spill-store bytes] of every K1, K2 and K5 kernel
+        # [registers, spill-store bytes] of every K1, K2, K4 and K5 kernel
         "k5_kernels": ptxas_paths(_build.build_log("flash_attention"),
                                   ("k5_flash_kernel",)),
         "k1_kernels": k1_kernels,
         "k2_kernels": k2_kernels,
+        "k4_kernels": k4_kernels,
     })
     return name, smi
 
@@ -619,9 +634,13 @@ def scan_tolerance(torch, op, dtype):
     return rtol, atol
 
 
-# K4: one sequential recurrence against the plain version's doubling scan
-# with h0 folded in after it (float32 state in both; bf16 rounds once)
-SSD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
+# K4: one sequential recurrence (or chunks joined by the look-back's
+# carries) against the plain version's doubling scan with h0 folded in
+# after it (float32 state in both; bf16 and fp16 round once, so an ordering
+# difference can move an output by one rounding step: 2^-7 relative in
+# bf16, 2^-10 in fp16)
+SSD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2),
+           "float16": (2e-3, 2e-3)}
 # K5: online against full softmax in float32 (TF32 off); bf16 and fp16 also
 # round p to v's type before the P.V product, as the reference kernel does,
 # and round the output once. fp16 keeps 3 more bits than bf16: the output's
@@ -691,6 +710,122 @@ def dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+#: K4's ragged lengths and widths: around the 64-step chunk (the CPU tests'
+#: T = 1, L - 1, L, L + 1, 3L + 5), the shortest chunked T (2L) and T beyond
+#: the look-back's 32-chunk window
+K4_T = (1, 63, 64, 65, 128, 129, 197, 4096, 10000)
+K4_D = (1, 3, 4, 130)
+#: h0 shapes that broadcast against a (2, 3, T, 64) trajectory, as the
+#: reference's h0[..., None, :] does (the last two widen the batch)
+K4_H0_SHAPES = ((64,), (1,), (3, 64), (1, 64), (2, 1, 64), (1, 3, 64),
+                (2, 3, 1), (2, 3, 64), (5, 2, 3, 64), (1, 2, 3, 64))
+
+
+def onchip_k4(torch, device, check):
+    """K4 on both paths: ragged T and D in float32, bf16 and fp16 with and
+    without h0, N-d and multi-tile widths, views off the vector alignment,
+    broadcast h0 through ``ops.ssd_scan``, the exact a = b = 1 case at
+    T = 4096 (bitwise), 20 back-to-back calls and calls on two streams.
+    Every call's launches by path are held to ``plan_launch``'s. Returns
+    the number of cases and the launches by path."""
+    import math
+
+    from repro_torch.kernels import ops, ref
+
+    k4 = kernel_modules()["k4"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    paths = {k: 0 for k in k4.path_launches}
+    pending = []
+
+    def launch(a, b, h0, what, tol=None):
+        """One ops.ssd_scan call, its launches by path held to the plan;
+        the comparison waits in ``pending``."""
+        before = dict(k4.path_launches)
+        got = ops.ssd_scan(a, b, h0)
+        made = {k: k4.path_launches[k] - before[k] for k in before}
+        h = got[0]
+        plan = k4.plan_launch(math.prod(h.shape[:-2]), h.shape[-2],
+                              h.shape[-1], h.dtype)
+        planned = {k: plan.launches if k == plan.path else 0 for k in before}
+        if made != planned:
+            raise AssertionError(f"K4 {what}: launched {made}, planned {planned}")
+        for k, n in made.items():
+            paths[k] += n
+        pending.append((got, (a, b, h0), what, tol, plan.path, sum(made.values())))
+
+    def settle():
+        for got, (a, b, h0), what, tol, path, launched in pending:
+            want = ref.ref_ssd_scan(a, b, h0)
+            rtol, atol = tol or SSD_TOL[dtype_name(a.dtype)]
+            check(f"k4:{path}:{dtype_name(a.dtype)}", got, want, rtol, atol,
+                  f"K4 {path} {what}", launched)
+        count = len(pending)
+        pending.clear()
+        return count
+
+    cases = 0
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    shapes = [(2, T, D) for T in K4_T for D in K4_D]
+    shapes += [(2, 3, 300, 48), (3, 2, 200, 256), (1, 3000, 1536)]
+    for shape in shapes:
+        for dtype in dtypes:
+            for with_h0 in (False, True):
+                a, b, h0 = ssd_input(torch, gen, dtype, shape, device, with_h0)
+                launch(a, b, h0, f"{dtype} {shape} h0={with_h0}")
+                cases += settle()
+    # views one element off the vector's alignment: the one-value instance
+    for dtype in dtypes:
+        for T in (200, 4096):
+            N, D = 2, 128
+            a, b, h0 = ssd_input(torch, gen, dtype, (N, T, D), device, True)
+            views = []
+            for x in (a, b):
+                buf = torch.empty(N * T * D + 1, dtype=dtype, device=device)
+                views.append(buf[1:].view(N, T, D).copy_(x))
+            va, vb = views
+            vec = k4.plan_launch(N, T, D, dtype, (va.data_ptr(), vb.data_ptr())).vec
+            if T >= 2 * k4.SHIPPED.chunk and (vec != 1 or k4.plan_launch(
+                    N, T, D, dtype, (a.data_ptr(), b.data_ptr())).vec == 1):
+                raise AssertionError(f"K4 {dtype} view: vector width {vec}")
+            launch(va, vb, h0, f"{dtype} {(N, T, D)} view off alignment")
+            cases += settle()
+    # h0 broadcast against the trajectory, on both paths
+    for T in (100, 256):
+        a, b, _ = ssd_input(torch, gen, torch.float32, (2, 3, T, 64), device, False)
+        for shape in K4_H0_SHAPES:
+            h0 = torch.randn(shape, generator=gen, device=device)
+            launch(a, b, h0, f"(2, 3, {T}, 64) h0 {shape}")
+        cases += settle()
+    # a = b = 1: every state an integer, exact in float32, so bitwise
+    for dtype in (torch.float32, torch.bfloat16):
+        ones = torch.ones((8, 4096, 1536), dtype=dtype, device=device)
+        h0 = torch.randint(-100, 100, (8, 1536), generator=gen, device=device)
+        for start in (None, h0.to(dtype)):
+            launch(ones, ones, start, f"{dtype} a = b = 1 (8, 4096, 1536) "
+                   f"h0={start is not None}", tol=(0.0, 0.0))
+            cases += settle()
+        del ones
+    # 20 calls back to back, no synchronisation between them
+    for i in range(20):
+        a, b, h0 = ssd_input(torch, gen, torch.float32, (2, 4096, 512), device,
+                             i % 2 == 1)
+        launch(a, b, h0, f"back-to-back call {i}")
+    cases += settle()
+    # two streams, each with its own inputs, interleaved
+    inputs = [ssd_input(torch, gen, dtype, (4, 2048, 768), device, True)
+              for dtype in (torch.float32, torch.bfloat16) for _ in range(3)]
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(device), torch.cuda.Stream(device))
+    for i, (a, b, h0) in enumerate(inputs):
+        with torch.cuda.stream(streams[i % 2]):
+            launch(a, b, h0, f"{a.dtype} stream {i % 2}, call {i}")
+    torch.cuda.synchronize()
+    cases += settle()
+    torch.cuda.empty_cache()
+    return cases, paths
+
+
 def phase_onchip(torch, device):
     from repro_torch.kernels import ops, ref
 
@@ -741,6 +876,8 @@ def phase_onchip(torch, device):
                 check(f"k4:{dtype_name(dtype)}", got, want, rtol, atol,
                       f"K4 {dtype} {shape} h0={with_h0}", launched)
                 cases += 1
+    k4_cases, k4_paths = onchip_k4(torch, device, check)
+    cases += k4_cases
     # K5: (BH, Sq, Skv, D, causal, window, q_offset)
     flash_cases = [
         (2, 128, 128, 32, True, 0, 0),
@@ -792,7 +929,7 @@ def phase_onchip(torch, device):
             cases += 1
     emit({
         "phase": "onchip", "cases": cases, "max_abs_err": worst,
-        "k5_row_rel_err": worst_row,
+        "k5_row_rel_err": worst_row, "k4_path_launches": k4_paths,
         "tolerances": {
             "k3": "bitwise for max and integers; float32 rtol 1e-4 (add atol "
                   "1e-3); bf16 rtol 1e-2, fp16 rtol 2e-3 (add atol = rtol)",
@@ -881,13 +1018,18 @@ def entry_cases(torch, device):
     a = 0.9 + 0.1 * torch.rand(shape, generator=gen, device=device)
     b = torch.randn(shape, generator=gen, device=device)
     h0 = torch.randn((8, 1536), generator=gen, device=device)
-    for h in (None, h0):
-        nbytes = 3 * a.numel() * 4 + (0 if h is None else h.numel() * 4)
+    k4 = kernel_modules()["k4"]
+    for x, y, h in ((a, b, None), (a, b, h0),
+                    (a.bfloat16(), b.bfloat16(), None)):
+        nbytes = (3 * x.numel() + (0 if h is None else h.numel())) * x.element_size()
         cases.append(EntryCase(
-            "k4", f"mamba2_130m ssd (8,4096,1536) f32 h0={h is not None}",
-            lambda h=h: ops.ssd_scan(a, b, h),
-            lambda h=h: ref.ref_ssd_scan(a, b, h),
-            None, SSD_TOL["float32"], nbytes, head=h is None,
+            "k4", f"mamba2_130m ssd (8,4096,1536) {dtype_name(x.dtype)} "
+                  f"h0={h is not None}",
+            lambda x=x, y=y, h=h: ops.ssd_scan(x, y, h),
+            lambda x=x, y=y, h=h: ref.ref_ssd_scan(x, y, h),
+            None, SSD_TOL[dtype_name(x.dtype)], nbytes,
+            head=h is None and x.dtype == torch.float32,
+            path=k4.plan_launch(*shape, x.dtype).path,
         ))
 
     # attention: (BH, Sq, Skv, D, causal, window, q_offset)
@@ -939,9 +1081,17 @@ def phase_entry(torch, device):
     cases = entry_cases(torch, device)
     for key in ("k3", "k4", "k5"):
         mods[key].launches = 0
+    for path in mods["k4"].path_launches:
+        mods["k4"].path_launches[path] = 0
     outs = [c.call() for c in cases]
     torch.cuda.synchronize()
     launches = {key: mods[key].launches for key in ("k3", "k4", "k5")}
+    k4_paths = dict(mods["k4"].path_launches)
+    planned = {path: sum(c.launches for c in cases
+                         if c.key == "k4" and c.path == path)
+               for path in k4_paths}
+    if k4_paths != planned:
+        raise AssertionError(f"k4: launched {k4_paths} by path, planned {planned}")
     for key, n in launches.items():
         # K3 and K4 launch once a call; K5 counts what its C entry
         # launched, held to what plan_launch planned
@@ -968,7 +1118,8 @@ def phase_entry(torch, device):
         del want
     del outs
     torch.cuda.empty_cache()
-    emit({"phase": "entry", "launches": launches, "calls": rows, "ok": True})
+    emit({"phase": "entry", "launches": launches, "k4_path_launches": k4_paths,
+          "calls": rows, "ok": True})
     return launches, cases
 
 
@@ -1694,6 +1845,69 @@ def phase_times_onchip(torch, card, launches, cases):
     ]
 
 
+def phase_times_k4(torch, device, card):
+    """K4's chunked path beside its column path (the first port's kernel) at
+    Mamba2-130m's (8, 4096, 1536) in float32 and bf16, timed in turns a, b,
+    b, a (device time of every activity of the call, the chunked path's
+    memset included); the chunked kernel alone; the chunked path with h0;
+    the bytes bound; and the same-bytes time of ``torch.add(a, b, out=h)``,
+    which reads two arrays of that shape and writes one (the rate the card
+    streams at, not the same function)."""
+    from repro_torch.kernels import ops, ref
+
+    k4 = kernel_modules()["k4"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    shape = (8, 4096, 1536)
+    iters = 20
+    for dtype in (torch.float32, torch.bfloat16):
+        a = (0.9 + 0.1 * torch.rand(shape, generator=gen, device=device)).to(dtype)
+        b = torch.randn(shape, generator=gen, device=device).to(dtype)
+        h0 = torch.randn(shape[:1] + shape[2:], generator=gen, device=device).to(dtype)
+        out = torch.empty_like(b)
+        calls = {
+            "chunked": (lambda: ops.ssd_scan(a, b)[0], None),
+            "column": (lambda: k4.ssd_rows(a, b, path="column"), None),
+        }
+        want = ref.ref_ssd_scan(a, b)[0]
+        err = {}
+        for path, (fn, _) in calls.items():
+            before = k4.path_launches[path]
+            got = fn()
+            if k4.path_launches[path] != before + 1:
+                raise AssertionError(f"times K4 {path}: not one {path} launch")
+            err[path] = assert_match(torch, got, want, *SSD_TOL[dtype_name(dtype)],
+                                     f"times K4 {path} {dtype}")
+            del got
+        del want
+        torch.cuda.synchronize()
+        times = paths_in_turns(torch, calls, iters)
+        nbytes = 3 * a.numel() * a.element_size()
+        bound_ms = nbytes / mem_bandwidth(card) * 1e3
+        same = lambda: torch.add(a, b, out=out)  # noqa: E731
+        row = {
+            "kernel": "k4", "shape": list(shape), "dtype": dtype_name(dtype),
+            "paths": times,
+            "chunked_kernel_ms": device_ms(torch, calls["chunked"][0], iters,
+                                           name=K4_KERNELS["chunked"]),
+            "chunked_h0_ms": device_ms(torch, lambda: ops.ssd_scan(a, b, h0),
+                                       iters),
+            "same_bytes": "torch.add(a, b, out=h)",
+            "same_bytes_ms": device_ms(torch, same, iters),
+            "same_bytes_event_ms": time_ms(torch, same, iters),
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_share": {k: (bound_ms / min(m for m in v["ms"] if m)
+                                if any(v["ms"]) else None)
+                            for k, v in times.items()},
+            "max_abs_err": err,
+            "blocks": {path: k4.plan_launch(*shape, dtype, path=path).blocks
+                       for path in calls},
+        }
+        emit({"phase": "times_k4", **row})
+        del a, b, h0, out
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1717,6 +1931,7 @@ def main() -> int:
     k1 = phase_times(torch, device, card, launches)
     k2 = phase_times_spmd(torch, device, card, spmd_launches)
     onchip = phase_times_onchip(torch, card, entry_launches, cases)
+    phase_times_k4(torch, device, card)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     emit({"kernels": [k1, k2, *onchip]})
     print(smi, flush=True)

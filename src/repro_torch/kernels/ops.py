@@ -22,6 +22,7 @@ kernels' 2-D / 3-D forms and reshape back. Differences:
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -61,7 +62,10 @@ def ssd_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Diagonal recurrence h_t = a_t h_{t-1} + b_t along axis -2 of (..., T, D).
 
-    Returns (h, h_last) with h: (..., T, D), h_last: (..., D).
+    Returns (h, h_last) with h: (..., T, D), h_last: (..., D). ``h0`` of shape
+    (..., D) broadcasts against the trajectory as the reference's
+    ``h0[..., None, :]`` does, batch axes included; a shape that does not
+    broadcast, or a 0-d ``h0``, raises ``ValueError``.
     ``block_rows`` / ``block_time`` are accepted for the reference's
     signature and ignored.
     """
@@ -72,9 +76,21 @@ def ssd_scan(
             f"{tuple(b.shape)}"
         )
     shape = b.shape
-    T, D = shape[-2], shape[-1]
-    h0_3 = None if h0 is None else h0.reshape(-1, D)
-    h = _ssd.ssd_rows(a.reshape(-1, T, D), b.reshape(-1, T, D), h0_3)
+    if h0 is not None:
+        if h0.ndim == 0:
+            raise ValueError("h0 needs a feature axis: (..., D)")
+        try:
+            shape = torch.broadcast_shapes(
+                shape, h0.shape[:-1] + (1,) + h0.shape[-1:])
+        except RuntimeError as err:
+            raise ValueError(
+                f"h0 {tuple(h0.shape)} does not broadcast against the "
+                f"trajectory {tuple(b.shape)}") from err
+        a, b = a.expand(shape), b.expand(shape)
+        h0 = h0.expand(shape[:-2] + shape[-1:])
+    N, T, D = math.prod(shape[:-2]), shape[-2], shape[-1]
+    h0_2 = None if h0 is None else h0.reshape(N, D)
+    h = _ssd.ssd_rows(a.reshape(N, T, D), b.reshape(N, T, D), h0_2)
     h = h.reshape(shape)
     return h, h[..., -1, :]
 
