@@ -65,7 +65,34 @@ non-zero without printing a result:
               against the whole schedule as one CUDA graph replay, and K1
               through the engine for hillis_steele; host_scan == sim_scan
               bitwise.
-8. times    — every kernel, its plain version and one PyTorch library call
+8. tune     — the tuner on the card (``repro_torch.offload.tuner``):
+              ``autotune`` over p = 2-16 x 1 KiB - 1 MiB x the five colls x
+              every applicable algorithm (eager, CUDA events),
+              ``tune_schedule`` over (1, 8), (1, 16) and (2, 4) x
+              (fused?, chunks 1-8) x backends ("" and "pallas": K1 raced
+              at the one-axis shapes; one CUDA graph of ``inner`` chained
+              runs a sample) and ``tune_splits``; every grid point
+              measured, the table's fingerprint names the card, a fitted
+              LinkModel, save -> ``load_compatible`` keeps the winners and
+              a jax-fingerprinted table is refused; then the table active,
+              "auto" descriptors for the five CollTypes at p = 8 and 16,
+              4 B - 1 MiB, bitwise against the untuned engine (int32 SUM,
+              float32 MAX) and within ``scan_tolerance`` of float64 numpy
+              (float32 SUM). Prints the fit, the p = 8 winners beside
+              ``DEFAULT_LINK_MODEL``'s picks and the backend races.
+9. profile  — ``profile_offload`` (``torch.profiler``) of hillis_steele
+              SCAN at p = 8 over the baseline sizes: K1 and the default
+              lowering in sim mode, driver mode, the (2, 4) optimized plan
+              in driver mode, and K2's per-rank lowering (``profile_call``);
+              each device-sourced, ``0 < device_us <= wall_us``, with K1's
+              or K2's launches among the window's device events (each
+              profiled dispatch taken again up to three times when CUPTI
+              drops activities). Then a traced K1 dispatch: bitwise equal
+              to the untraced one, the span tree ``engine.offload`` ->
+              ``engine.compile`` / phase span -> ``phase_round_count``
+              round spans, the merged host+device trace aligned, the
+              engine's series in the Prometheus text.
+10. times   — every kernel, its plain version and one PyTorch library call
               at the main and entry shapes: device time from
               ``torch.profiler`` and the per-call time with CUDA events
               (host overhead included), beside the least time the card's
@@ -84,8 +111,10 @@ prints them; the last line is the result object.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1195,6 +1224,490 @@ def phase_baseline(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# the measurement layer: the tuner and its table, profiled device latency,
+# the traced dispatch
+# ---------------------------------------------------------------------------
+
+TUNE_PS = (2, 4, 8, 16)
+TUNE_PAYLOADS = (1 << 10, 64 << 10, 1 << 20)
+TUNE_COLLS = ("scan", "exscan", "reduce", "allreduce", "barrier")
+#: tune_schedule's grid: K1 is raced at the one-axis shapes
+SCHEDULE_TOPOLOGIES = ((1, 8), (1, 16), (2, 4))
+SCHEDULE_CHUNKS = (1, 2, 4, 8)
+SPLIT_TOPOLOGIES = ((2, 4), (4, 2), (2, 2, 2))
+SPLIT_PAYLOADS = (1 << 10, 64 << 10)
+TUNED_SIZES = (4, 1 << 10, 64 << 10, 1 << 20)
+
+
+def card_fingerprint(torch) -> str:
+    import platform
+
+    major, minor = torch.cuda.get_device_capability(0)
+    return (f"torch-cuda:{torch.cuda.get_device_name(0)}:sm_{major}{minor}:"
+            f"{platform.machine()}")
+
+
+def tuned_dispatches(torch, device, eng):
+    """(label, descriptor, payload, float64 numpy reference or None) for
+    SCAN, EXSCAN, REDUCE, ALLREDUCE and BARRIER at p = 8 and 16, 4 B - 1
+    MiB per rank, in the single-axis and the one-axis planned form, int32
+    SUM, float32 MAX and float32 SUM, every choice left to "auto"."""
+    import numpy as np
+
+    from repro_torch.core.packet import WireDType
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(18)
+    out = []
+    for p in (8, 16):
+        for coll in ("SCAN", "EXSCAN", "REDUCE", "ALLREDUCE", "BARRIER"):
+            for nb in ((4,) if coll == "BARRIER" else TUNED_SIZES):
+                for form in ("single", "planned"):
+                    shape = {"p": p} if form == "single" else {"axes": (1, p)}
+                    cases = ((("sum", "float32"),) if coll == "BARRIER" else
+                             (("sum", "int32"), ("max", "float32"),
+                              ("sum", "float32")))
+                    for op, dt in cases:
+                        desc = eng.make_descriptor(
+                            coll, payload_bytes=nb, op=op,
+                            data_type=getattr(WireDType, dt.upper()),
+                            algorithm="auto", optimize="auto", chunks="auto",
+                            backend="auto", **shape)
+                        x, want = None, None
+                        if coll != "BARRIER":
+                            n = nb // 4
+                            if dt == "int32":
+                                x = torch.randint(-1000, 1000, (p, n),
+                                                  generator=gen, device=device,
+                                                  dtype=torch.int32)
+                            else:
+                                x = torch.randn((p, n), generator=gen,
+                                                device=device)
+                            if (op, dt) == ("sum", "float32"):
+                                xs = x.double().cpu().numpy()
+                                total = xs.sum(0)
+                                want = {
+                                    "SCAN": np.cumsum(xs, 0),
+                                    "EXSCAN": np.concatenate(
+                                        [np.zeros_like(xs[:1]),
+                                         np.cumsum(xs, 0)[:-1]]),
+                                    "REDUCE": np.concatenate(
+                                        [total[None], np.zeros_like(xs[1:])]),
+                                    "ALLREDUCE": np.broadcast_to(total,
+                                                                 xs.shape),
+                                }[coll]
+                        label = f"{coll} {form} p={p} {nb}B {op} {dt}"
+                        out.append((label, (op, dt), desc, x, want))
+    return out
+
+
+def phase_tune(torch, device):
+    """The tuner on the card: autotune, tune_schedule (K1 raced at the
+    one-axis shapes) and tune_splits into one table; the table's checks;
+    then tuned dispatches against untuned ones."""
+    import os
+    import tempfile
+    import warnings
+
+    import numpy as np
+
+    from repro_torch import OffloadEngine
+    from repro_torch.core.algorithms import ALGORITHMS
+    from repro_torch.core.operators import get_operator
+    from repro_torch.core.selector import (DEFAULT_LINK_MODEL,
+                                           get_active_tuning,
+                                           select_algorithm)
+    from repro_torch.offload import backends, passes, planner, tuner
+    from repro_torch.offload.tuning_cache import TuningCache, deactivate
+
+    k1 = kernel_modules()["k1"]
+    t0 = time.perf_counter()
+    if any(p & (p - 1) for p in TUNE_PS):
+        raise AssertionError("the grid count below assumes power-of-two p")
+    table = tuner.autotune(ps=TUNE_PS, payloads=TUNE_PAYLOADS,
+                           colls=TUNE_COLLS, iters=5)
+    # sum admits every algorithm; allreduce and barrier measure their one
+    # power-of-two butterfly
+    want = len(TUNE_PS) * len(TUNE_PAYLOADS) * (3 * len(ALGORITHMS) + 2)
+    keys = {(m.coll, m.algo, m.p, m.payload_bytes) for m in table.measurements}
+    if len(table.measurements) != want or len(keys) != want:
+        raise AssertionError(f"autotune measured {len(table.measurements)} "
+                             f"points ({len(keys)} distinct) of {want}")
+    t_auto = time.perf_counter() - t0
+
+    launches0 = k1.launches
+    tuner.tune_schedule(topologies=SCHEDULE_TOPOLOGIES,
+                        payloads=TUNE_PAYLOADS, colls=("scan", "exscan"),
+                        chunks=SCHEDULE_CHUNKS, backends=("", "pallas"),
+                        iters=3, cache=table)
+    k1_capture_launches = k1.launches - launches0
+    fused = backends.get_backend("pallas")
+    want_rows = set()
+    for sizes in SCHEDULE_TOPOLOGIES:
+        for nb in TUNE_PAYLOADS:
+            for coll in ("scan", "exscan"):
+                for opt in (False, True):
+                    for c in SCHEDULE_CHUNKS:
+                        want_rows.add((coll, sizes, opt, c, "", nb))
+                        plan = planner.build_plan(coll, sizes, "sum", nb)
+                        if opt:
+                            plan = passes.optimize_plan(plan)
+                        if c > 1:
+                            plan = dataclasses.replace(plan, chunking=c)
+                        if fused.capabilities(plan)[0]:
+                            want_rows.add((coll, sizes, opt, c, "pallas", nb))
+    rows = [(m.coll, m.sizes, m.optimized, m.chunks, m.backend,
+             m.payload_bytes) for m in table.fusion_measurements]
+    if len(rows) != len(want_rows) or set(rows) != want_rows:
+        raise AssertionError(f"tune_schedule measured {len(rows)} variants "
+                             f"of {len(want_rows)}")
+    raced = {(r[1], r[5], r[0]) for r in rows if r[4] == "pallas"}
+    one_axis = {(s, nb, c) for s in SCHEDULE_TOPOLOGIES if s[0] == 1
+                for nb in TUNE_PAYLOADS for c in ("scan", "exscan")}
+    if raced != one_axis:
+        raise AssertionError(f"K1 raced at {sorted(raced)}, not at every "
+                             "one-axis point")
+    if k1_capture_launches <= 0:
+        raise AssertionError("tune_schedule launched no K1")
+    t_sched = time.perf_counter() - t0 - t_auto
+
+    tuner.tune_splits(topologies=SPLIT_TOPOLOGIES, payloads=SPLIT_PAYLOADS,
+                      colls=("scan", "allreduce"), iters=3, cache=table)
+    want_splits = sum(math.factorial(len(s)) for s in SPLIT_TOPOLOGIES) * (
+        len(SPLIT_PAYLOADS) * 2)
+    if len(table.split_measurements) != want_splits:
+        raise AssertionError(f"tune_splits measured "
+                             f"{len(table.split_measurements)} of {want_splits}")
+    t_tuned = time.perf_counter() - t0
+
+    if table.backend != card_fingerprint(torch):
+        raise AssertionError(f"table fingerprint {table.backend!r}")
+    fit = table.fitted_model()
+    if fit is None:
+        raise AssertionError("no fitted model")
+    with tempfile.TemporaryDirectory() as td:
+        path = table.save(os.path.join(td, "table.json"))
+        again = TuningCache.load_compatible(path)
+        if again is None or any(
+                getattr(again, w) != getattr(table, w)
+                for w in ("winners", "split_winners", "schedule_winners",
+                          "backend_winners", "fusion_winners")):
+            raise AssertionError("saved table came back with other winners")
+        data = json.loads(Path(path).read_text())
+        data["backend"] = f"gpu:{torch.cuda.get_device_name(0)}:x86_64"
+        jax_path = Path(td) / "jax_table.json"
+        jax_path.write_text(json.dumps(data))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if TuningCache.load_compatible(jax_path) is not None:
+                raise AssertionError("a table with a jax fingerprint loaded")
+        if not any("measured on backend" in str(w.message) for w in caught):
+            raise AssertionError("no warning for the jax-fingerprint table")
+
+    # tuned dispatches against the untuned engine's, the same payloads
+    untuned = OffloadEngine()
+    base = tuned_dispatches(torch, device, untuned)
+    want_out = [untuned.offload(d, x) for _, _, d, x, _ in base]
+    table.activate()
+    if get_active_tuning() is not table:
+        raise AssertionError("the table is not active")
+    eng = OffloadEngine()
+    cases = tuned_dispatches(torch, device, eng)
+    words_changed = 0
+    checked = 0
+    for (label, kind, desc, x, ref), (_, _, udesc, _, _), unt in zip(
+            cases, base, want_out):
+        got = eng.offload(desc, x)
+        words_changed += desc.encode().tobytes() != udesc.encode().tobytes()
+        if kind == ("sum", "float32"):
+            if ref is None:  # BARRIER: the token
+                assert_match(torch, got, unt, 0.0, 0.0, f"tuned {label}")
+            else:
+                rtol, atol = scan_tolerance(torch, "add", torch.float32)
+                np.testing.assert_allclose(got.double().cpu().numpy(), ref,
+                                           rtol=rtol, atol=atol,
+                                           err_msg=f"tuned {label}")
+        else:
+            assert_match(torch, got, unt, 0.0, 0.0, f"tuned {label}")
+        if not bool(torch.isfinite(got.double()).all()):
+            raise AssertionError(f"tuned {label}: non-finite output")
+        checked += 1
+    snap = eng.telemetry.snapshot()
+
+    winners = []
+    for coll in TUNE_COLLS:
+        op = get_operator("max" if coll == "barrier" else "sum")
+        for nb in TUNE_PAYLOADS:
+            win = table.winners[(coll, 8, nb)]
+            pick = select_algorithm(8, nb, op, model=DEFAULT_LINK_MODEL,
+                                    coll=coll)
+            times = {m.algo: m.seconds for m in table.measurements
+                     if (m.coll, m.p, m.payload_bytes) == (coll, 8, nb)}
+            winners.append({
+                "coll": coll, "bytes_per_rank": nb, "measured_winner": win,
+                "winner_us": 1e6 * times[win],
+                "default_model_pick": pick,
+                "default_pick_us": (1e6 * times[pick] if pick in times
+                                    else None)})
+    races = []
+    for sizes in SCHEDULE_TOPOLOGIES:
+        if sizes[0] != 1:
+            continue
+        for coll in ("scan", "exscan"):
+            for nb in TUNE_PAYLOADS:
+                best = {}
+                for m in table.fusion_measurements:
+                    if (m.coll, m.sizes, m.payload_bytes) == (coll, sizes, nb):
+                        b = m.backend or "default"
+                        best[b] = min(best.get(b, math.inf), m.seconds)
+                races.append({
+                    "coll": coll, "sizes": list(sizes), "bytes_per_rank": nb,
+                    "winner": table.backend_winner(coll, sizes, nb) or "default",
+                    "default_us": 1e6 * best["default"],
+                    "pallas_us": 1e6 * best["pallas"],
+                    "schedule_winner": list(table.schedule_winner(coll, sizes,
+                                                                  nb))})
+    deactivate()
+    if get_active_tuning() is not None:
+        raise AssertionError("the table is still active")
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit({"phase": "tune", "fingerprint": table.backend,
+          "timing": "CUDA events; inner = 1 eager, inner > 1 one CUDA graph "
+                    "of inner chained runs",
+          "fitted": {"alpha": fit.alpha, "beta": fit.beta, "gamma": fit.gamma},
+          "autotune_points": len(table.measurements),
+          "schedule_points": len(rows), "split_points": want_splits,
+          "k1_launches_in_tune_schedule": k1_capture_launches,
+          "p8_winners": winners, "backend_races": races,
+          "tuned_dispatches": checked,
+          "tuned_descriptors_that_differ": words_changed,
+          "tuned_backend_fallbacks": snap["backend_fallback_reasons"],
+          "seconds": {"autotune": round(t_auto, 3),
+                      "tune_schedule": round(t_sched, 3),
+                      "tune_splits": round(t_tuned - t_auto - t_sched, 3),
+                      "phase": round(seconds, 3)},
+          "ok": True})
+    return seconds
+
+
+def profiled_ok(timing, launched=0):
+    return (timing.source == "profiler" and timing.events >= max(1, launched)
+            and 0 < timing.device_us <= timing.wall_us)
+
+
+def profile_retaken(torch, call, launches_of=None):
+    """``call()`` -> DeviceTiming, taken again (CUPTI now and then drops
+    activities) up to three times in all until it passes ``profiled_ok``;
+    returns (timing, launches counted in the window)."""
+    for _attempt in range(3):
+        before = launches_of() if launches_of else 0
+        timing = call()
+        launched = (launches_of() - before) if launches_of else 0
+        if profiled_ok(timing, launched):
+            return timing, launched
+    raise AssertionError(f"profiled dispatch failed three times: {timing} "
+                         f"({launched} launches in the window)")
+
+
+def phase_profile(torch, device):
+    """profile_offload on the card: K1 through the engine in sim mode, the
+    default sim lowering, driver mode, K2's per-rank lowering under
+    shard_map and the (2, 4) planned optimized SCAN; then one traced K1
+    dispatch: its spans, the merged trace, the metrics."""
+    import tempfile
+    from statistics import median
+
+    from repro_torch import OffloadEngine
+    from repro_torch.compat import Mesh, shard_map
+    from repro_torch.core import algorithms as alg
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import tracing as obs_tracing
+    from repro_torch.offload import backends, planner
+    from repro_torch.offload.profiling import profile_call
+
+    mods = kernel_modules()
+    k1, k2 = mods["k1"], mods["k2"]
+    t0 = time.perf_counter()
+    p = 8
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    eng = OffloadEngine()
+    line = Mesh((1, p), ("o", "i"), device=device)
+    ring = Mesh((p,), ("i",), device=device)
+    grid = Mesh((2, 4), ("a", "b"), device=device)
+    def dispatch_us(desc, x):
+        lat = []
+        for _ in range(23):  # unprofiled: the engine's own clock
+            eng.offload(desc, x)
+            lat.append(eng.telemetry.last_latency_s * 1e6)
+        return median(lat[3:])
+
+    # every size's legs, and their unprofiled dispatch time before this
+    # process has run a profiler session
+    sizes = []
+    for nb in BASELINE_SIZES:
+        x = torch.randn((p, max(1, nb // 4)), generator=gen, device=device)
+        legs = []
+        for backend in ("pallas", ""):
+            desc = eng.make_descriptor("SCAN", axes=(1, p), payload_bytes=nb,
+                                       algorithm="hillis_steele",
+                                       backend=backend, chunks=1)
+            eng.offload(desc, x)
+            legs.append((f"sim {backend or 'default'}", desc, {},
+                         dispatch_us(desc, x), k1 if backend else None))
+            if backend:
+                legs.append(("driver", desc,
+                             {"axis_name": ("o", "i"), "mesh": line}, None,
+                             None))
+        d24 = eng.make_descriptor("SCAN", axes=(2, 4), payload_bytes=nb,
+                                  split=(0, 1), optimize=True)
+        legs.append(("driver (2,4) optimized", d24,
+                     {"axis_name": ("a", "b"), "mesh": grid}, None, None))
+        sizes.append((nb, x, legs))
+    rows = []
+    for nb, x, legs in sizes:
+        want = eng.offload(legs[0][1], x)  # K1
+        row = {"bytes_per_rank": nb}
+        for label, desc, kw, before_us, mod in legs:
+            sim = eng.offload(desc, x)
+            if label == "sim default":  # hillis_steele either way: bitwise
+                assert_match(torch, sim, want, 0.0, 0.0, f"K1 vs sim {nb}B")
+            eng.offload(desc, x, **kw)  # warm: the window holds one dispatch
+            timing, launched = profile_retaken(
+                torch, lambda: eng.profile_offload(desc, x, warmup=0, **kw),
+                (lambda m=mod: m.launches) if mod else None)
+            if eng.telemetry.snapshot()["latency_source_by_coll"].get(
+                    "scan") != "profiler":
+                raise AssertionError(f"profile {label} {nb}B: source not "
+                                     "the profiler in the snapshot")
+            got = eng.offload(desc, x, **kw)
+            assert_match(torch, got, sim, 0.0, 0.0, f"profile {label} {nb}B")
+            row[label] = {
+                "device_us": timing.device_us, "wall_us": timing.wall_us,
+                "host_share": 1 - timing.device_us / timing.wall_us,
+                "events": timing.events, "launches": launched}
+            if before_us is not None:
+                row[label]["dispatch_us"] = before_us
+                row[label]["dispatch_host_share"] = (
+                    1 - timing.device_us / before_us)
+        # K2: the per-rank fused lowering under the port's shard_map (the
+        # engine's planned descriptors bind one axis name per axis, and K2
+        # takes a one-axis mesh only, so no descriptor reaches it)
+        plan = planner.build_plan("SCAN", (p,), "sum", nb)
+        run = shard_map(backends.get_backend("pallas").lower(
+            plan, "sum", axis_names=("i",)), ring, ("i",), "i")
+        assert_match(torch, run(x), want, 0.0, 0.0, f"profile K2 {nb}B")
+        paths = dict(k2.path_launches)
+        timing, launched = profile_retaken(
+            torch, lambda: profile_call(lambda: run(x), f"k2_spmd:scan:p{p}",
+                                        coll="scan"),
+            lambda: k2.launches)
+        row["k2 per-rank"] = {
+            "device_us": timing.device_us, "wall_us": timing.wall_us,
+            "host_share": 1 - timing.device_us / timing.wall_us,
+            "events": timing.events, "launches": launched,
+            "path_launches": {k: v - paths[k]
+                              for k, v in k2.path_launches.items()}}
+        rows.append(row)
+    # the same dispatches again, now that the profiler has run
+    for (nb, x, legs), row in zip(sizes, rows):
+        for label, desc, _, before_us, _ in legs:
+            if before_us is not None:
+                row[label]["dispatch_us_after_profiling"] = dispatch_us(desc,
+                                                                        x)
+    snap = eng.telemetry.snapshot()
+    if snap["profiler_fallbacks"]:
+        raise AssertionError(f"profiler fallbacks {snap['profiler_fallback_reasons']}")
+    t_profiled = time.perf_counter() - t0
+
+    # the traced K1 dispatch
+    prev = obs_metrics.set_registry(obs_metrics.MetricsRegistry())
+    try:
+        teng = OffloadEngine()
+        nb = 1 << 10
+        x = torch.randn((p, nb // 4), generator=gen, device=device)
+        desc = teng.make_descriptor("SCAN", axes=(1, p), payload_bytes=nb,
+                                    algorithm="hillis_steele",
+                                    backend="pallas", chunks=1)
+        untraced = teng.offload(desc, x)
+        before = k1.launches
+        with obs_tracing.tracing() as tracer:
+            traced = teng.offload(desc, x)
+        if k1.launches == before:
+            raise AssertionError("the traced dispatch launched no K1")
+        assert_match(torch, traced, untraced, 0.0, 0.0, "traced K1 dispatch")
+        spans = tracer.spans()
+        by_id = {s.span_id: s for s in spans}
+        roots = [s for s in spans if s.parent_id is None]
+        if [s.name for s in roots] != ["engine.offload"]:
+            raise AssertionError(f"span roots {[s.name for s in roots]}")
+        root = roots[0]
+        compiles = [s for s in spans if s.name == "engine.compile"]
+        phases = [s for s in spans if s.cat == "phase"]
+        rounds = [s for s in spans if s.cat == "round"]
+        want_rounds = alg.phase_round_count("SCAN", p, inclusive=True)
+        if (len(compiles) != 1 or compiles[0].parent_id != root.span_id
+                or root.args.get("cache") != "miss"):
+            raise AssertionError("no engine.compile under the missed dispatch")
+        if len(phases) != 1 or phases[0].parent_id != root.span_id:
+            raise AssertionError(f"phase spans {[s.name for s in phases]}")
+        if (len(rounds) != want_rounds or phases[0].args.get("rounds")
+                != want_rounds or any(r.parent_id != phases[0].span_id
+                                      for r in rounds)):
+            raise AssertionError(f"{len(rounds)} K1 round spans, want "
+                                 f"{want_rounds}")
+        for s in spans:
+            parent = by_id.get(s.parent_id)
+            if parent and not (parent.start_us <= s.start_us
+                               and s.end_us <= parent.end_us + 1e-3):
+                raise AssertionError(f"span {s.name} escapes {parent.name}")
+        with obs_tracing.tracing() as tracer2:
+            with tempfile.TemporaryDirectory() as td:
+                for _attempt in range(3):
+                    tracer2.clear()
+                    timing = teng.profile_offload(desc, x, trace_dir=td)
+                    if profiled_ok(timing):
+                        break
+                else:
+                    raise AssertionError(f"traced profile: {timing}")
+                host = obs_export.spans_to_chrome(tracer2.spans())
+                merged = obs_export.merge_device_trace(
+                    host, obs_export.load_chrome_trace(timing.trace_path))
+        if not merged["deviceClockAligned"] or not merged["deviceEventsMerged"]:
+            raise AssertionError("merged trace not aligned")
+        prom = obs_metrics.render_prometheus()
+        for series in ("repro_engine_dispatches_total",
+                       "repro_engine_device_latency_us_bucket"):
+            if series not in prom:
+                raise AssertionError(f"{series} missing from the metrics")
+    finally:
+        obs_metrics.set_registry(prev)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit({"phase": "profile", "p": p, "coll": "SCAN", "op": "sum",
+          "dtype": "float32",
+          "timing": "device_us: union of the window's kernels, copies and "
+                    "memsets (torch.profiler, CUPTI); wall_us: host clock "
+                    "around the profiled dispatch, profiler on; dispatch_us: "
+                    "the engine's own clock, median of 20 after 3, before "
+                    "the process's first profiler session (and again after "
+                    "the phase's)",
+          "rows": rows,
+          "backend_fallbacks": snap["backend_fallback_reasons"],
+          "traced": {"spans": len(spans), "k1_round_spans": len(rounds),
+                     "phase_round_count": want_rounds,
+                     "merged_device_events": merged["deviceEventsMerged"],
+                     "aligned": merged["deviceClockAligned"],
+                     "bitwise_equal_untraced": True},
+          "seconds": {"profiled": round(t_profiled, 3),
+                      "phase": round(seconds, 3)},
+          "ok": True})
+    return seconds
+
+
+# ---------------------------------------------------------------------------
 # K2: the per-rank collective kernel, through the registry under shard_map
 # ---------------------------------------------------------------------------
 
@@ -1928,6 +2441,8 @@ def main() -> int:
     entry_launches, cases = phase_entry(torch, device)
     spmd_launches = phase_spmd(torch, device)
     phase_baseline(torch, device)
+    phase_tune(torch, device)
+    phase_profile(torch, device)
     k1 = phase_times(torch, device, card, launches)
     k2 = phase_times_spmd(torch, device, card, spmd_launches)
     onchip = phase_times_onchip(torch, card, entry_launches, cases)

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.trees import (
-    resolve_device,
+    checked_device,
     tree_flatten,
     tree_leaves,
     tree_map,
@@ -75,13 +75,9 @@ class Mesh:
             raise ValueError(f"repeated mesh axis name in {self.axis_names}")
         self.size = int(np.prod(self.shape, dtype=np.int64))
         self.group = group
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "Mesh(device='cuda') needs a CUDA device and none is "
-                "available; pass device='cpu' to run the ranks on the CPU"
-            )
-        self.device = resolve_device(device)
+        self.device = checked_device(
+            "cuda" if device is None else device, "Mesh(device='cuda')"
+        )
         if group is None:
             self.devices = np.arange(self.size).reshape(self.shape)
             self.ranks: "_RankGroup" = _CoResident(self)

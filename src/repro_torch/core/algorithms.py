@@ -578,6 +578,14 @@ def concat_chunks(parts: Sequence[PyTree]) -> PyTree:
     return tree_map(lambda *leaves: torch.cat(leaves, dim=-1), *parts)
 
 
+def _set_chunk_context(backend: Backend, chunk: int, rnd: int) -> None:
+    """Tag the backend's next permutes with (chunk, per-chunk round) — the
+    tracing backend picks this up for per-(round, chunk) span attribution."""
+    setter = getattr(backend, "set_chunk_context", None)
+    if setter is not None:
+        setter(chunk, rnd)
+
+
 def _pipeline(
     backend: Backend,
     states: List[Any],
@@ -593,7 +601,10 @@ def _pipeline(
     rounds = len(round_fns)
     for t in range(rounds + chunks - 1):
         for c in range(max(0, t - rounds + 1), min(chunks, t + 1)):
-            states[c] = round_fns[t - c](states[c], c)
+            r = t - c
+            _set_chunk_context(backend, c, r)
+            states[c] = round_fns[r](states[c], c)
+    _set_chunk_context(backend, -1, -1)
     return states
 
 

@@ -29,6 +29,20 @@ def resolve_device(device: "torch.device | str") -> torch.device:
     return device
 
 
+def checked_device(device: "torch.device | str", who: str) -> torch.device:
+    """``device`` resolved as :func:`resolve_device` does; raises, naming
+    ``who``, when it is a CUDA device on a machine without one (entry points
+    run on the card unless the caller asks for the CPU, never quietly on the
+    CPU in its place)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who} needs a CUDA device and none is available; pass "
+            "device='cpu' to run on the CPU"
+        )
+    return resolve_device(device)
+
+
 def tree_device(tree: PyTree) -> torch.device:
     """The one device every leaf of ``tree`` lives on (raises on a mix)."""
     devices = {leaf.device for leaf in tree_leaves(tree)}

@@ -53,6 +53,7 @@ from repro_torch.core.trees import (
     tree_leaves,
     tree_unflatten,
 )
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.offload.planner import (
     CollectivePlan,
     PhaseKind,
@@ -597,6 +598,7 @@ def lower_fused(
     *,
     device: "torch.device | str" = "cuda",
     axis_names: Optional[Sequence[str]] = None,
+    traced: bool = False,
 ):
     """Compile a supported plan to fused-kernel schedules.
 
@@ -610,6 +612,12 @@ def lower_fused(
     order and zero fills). Raises ``ValueError`` for plans outside
     :func:`supports_plan`; callers wanting a soft fallback go through the
     lowering registry (:mod:`repro_torch.offload.backends`).
+
+    ``traced=True`` (stacked leaves only) records, under a collecting
+    tracer, one ``phase`` span for each K1 launch and
+    ``phase_round_count`` ``round`` spans splitting it evenly
+    (:func:`repro_torch.obs.tracing.add_kernel_round_spans`): the launch
+    is bracketed by two device syncs, so the phase span is its whole cost.
     """
     op = get_operator(plan.op_name if op is None else op)
     ok, reason = supports_plan(plan, axis_names)
@@ -625,6 +633,8 @@ def lower_fused(
     k = len(logical)
     p_total = plan.p
     lv_active = active_level(plan)
+    coll_name = plan.coll.name.lower()
+    sim_backends = [alg.SimBackend(p_axis, device) for p_axis in logical]
 
     def to_mesh(tree: PyTree) -> PyTree:
         leaves, spec = tree_flatten(tree)
@@ -639,6 +649,7 @@ def lower_fused(
         )
 
     def run(x: Optional[PyTree]) -> PyTree:
+        tracer = obs_tracing.get_tracer() if traced else obs_tracing.NOOP
         regs = {}
         if plan.coll == CollType.BARRIER:
             regs["x"] = torch.ones(logical, dtype=torch.float32, device=device)
@@ -657,14 +668,33 @@ def lower_fused(
                 regs[ph.dst] = op.identity_like(regs[ph.src[0]])
                 continue
             p_axis = logical[ph.level]
+            rounds = 0
             if ph.level == lv_active and ph.kind in _COMM_KINDS:
                 phase_op = MAX if ph.kind == PhaseKind.BARRIER else op
                 fn = lambda t, _ph=ph, _op=phase_op: comm_phase(  # noqa: E731
                     _ph.kind, p_axis, _op, t, inclusive=_ph.inclusive
                 )
+                rounds = alg.phase_round_count(
+                    ph.kind.name, p_axis, inclusive=ph.inclusive
+                )
             else:
-                fn = _sim_fallback_fn(ph, op, alg.SimBackend(p_axis, device))
-            out = _along_axis(regs[ph.src[0]], ph.level, fn)
+                fn = _sim_fallback_fn(ph, op, sim_backends[ph.level])
+            if tracer.enabled and rounds:
+                obs_tracing._block(regs[ph.src[0]])
+                t0 = obs_tracing.now_us()
+                out = obs_tracing._block(
+                    _along_axis(regs[ph.src[0]], ph.level, fn)
+                )
+                obs_tracing.add_kernel_round_spans(
+                    tracer,
+                    phase=f"{ph.kind.name}:L{ph.level}",
+                    coll=coll_name,
+                    rounds=rounds,
+                    start_us=t0,
+                    end_us=obs_tracing.now_us(),
+                )
+            else:
+                out = _along_axis(regs[ph.src[0]], ph.level, fn)
             if ph.kind == PhaseKind.FUSED_SCAN_TOTAL:
                 regs[ph.dst], regs[ph.dst2] = out
             else:

@@ -71,10 +71,12 @@ class LoweringBackend(Protocol):
         *,
         device: "torch.device | str" = "cuda",
         axis_names: Optional[Sequence[str]] = None,
+        traced: bool = False,
     ) -> Callable:
         """Compile ``plan`` to a schedule callable: over stacked leaves on
         ``device``, or per rank under ``axis_names`` (whose mesh then
-        decides the device)."""
+        decides the device). ``traced`` asks a stacked-leaf lowering for
+        its span-emitting form (phase and round spans)."""
         ...
 
     def fingerprint(self) -> Tuple[Tuple[str, str], ...]:
@@ -94,10 +96,11 @@ class SimLowering:
             return False, "needs_stacked_input"
         return True, ""
 
-    def lower(self, plan, op=None, *, device="cuda", axis_names=None):
+    def lower(self, plan, op=None, *, device="cuda", axis_names=None,
+              traced=False):
         if axis_names is not None:
             raise ValueError("the sim lowering takes stacked input, no axes")
-        return lower_sim(plan, op, device=device)
+        return lower_sim(plan, op, device=device, traced=traced)
 
     def fingerprint(self):
         return ()
@@ -114,7 +117,8 @@ class SpmdLowering:
             return False, "needs_axis_names"
         return True, ""
 
-    def lower(self, plan, op=None, *, device="cuda", axis_names=None):
+    def lower(self, plan, op=None, *, device="cuda", axis_names=None,
+              traced=False):
         return lower_spmd(plan, axis_names, op)
 
     def fingerprint(self):
@@ -133,11 +137,12 @@ class FusedLowering:
 
         return fused_collective.supports_plan(plan, axis_names)
 
-    def lower(self, plan, op=None, *, device="cuda", axis_names=None):
+    def lower(self, plan, op=None, *, device="cuda", axis_names=None,
+              traced=False):
         from repro_torch.kernels import fused_collective
 
         return fused_collective.lower_fused(
-            plan, op, device=device, axis_names=axis_names
+            plan, op, device=device, axis_names=axis_names, traced=traced
         )
 
     def fingerprint(self):

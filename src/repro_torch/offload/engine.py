@@ -27,6 +27,14 @@ when the ``optimized`` flag is set, and the lowering-backend registry — where
 ``backend="pallas"`` selects the fused CUDA kernel — and cache under a
 fingerprint of the plan, so descriptors whose plans converge share one
 schedule.
+
+:meth:`OffloadEngine.profile_offload` runs one dispatch under
+``torch.profiler`` and feeds the device-side schedule time back into the
+telemetry (``device_latency_by_coll_us``, the measured-on-device latency
+source); under a collecting tracer (:mod:`repro_torch.obs.tracing`) a
+dispatch emits ``engine`` spans and a planned sim dispatch runs the traced
+lowering (phase and round spans). Every telemetry producer also publishes
+into :mod:`repro_torch.obs.metrics` and :mod:`repro_torch.obs.events`.
 """
 
 from __future__ import annotations
@@ -54,7 +62,10 @@ from repro_torch.core.reduce_ops import (
 )
 from repro_torch.core.scan_collective import dist_exscan, dist_scan, sim_scan
 from repro_torch.core.selector import select_algorithm
-from repro_torch.core.trees import resolve_device, tree_leaves
+from repro_torch.core.trees import checked_device, tree_leaves
+from repro_torch.obs import events as obs_events
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.offload import planner
 
 PyTree = Any
@@ -114,9 +125,9 @@ def _itemsize(dtype: torch.dtype) -> int:
 class EngineTelemetry:
     """Counters the engine maintains per dispatch (the NIC status registers).
 
-    The device-latency and profiler fields are kept (zero) so ``snapshot()``
-    has the reference's keys; their producer, ``profile_offload``, is not
-    ported yet.
+    Each producer also publishes into the shared metrics registry
+    (:mod:`repro_torch.obs.metrics`) and, for fallbacks, the flight recorder
+    (:mod:`repro_torch.obs.events`), under the reference's names.
     """
 
     hits: int = 0
@@ -151,6 +162,12 @@ class EngineTelemetry:
     def record_dispatch(self, coll: str, latency_s: Optional[float]) -> None:
         self.dispatches += 1
         self.calls_by_coll[coll] = self.calls_by_coll.get(coll, 0) + 1
+        reg = obs_metrics.get_registry()
+        reg.counter(
+            "repro_engine_dispatches_total",
+            "engine offload dispatches",
+            labelnames=("coll",),
+        ).inc(coll=coll)
         if latency_s is not None:
             self.timed_dispatches += 1
             self.total_latency_s += latency_s
@@ -158,6 +175,52 @@ class EngineTelemetry:
             tot, n = self.latency_by_coll.get(coll, (0.0, 0))
             self.latency_by_coll[coll] = (tot + latency_s, n + 1)
             self.latency_source_by_coll.setdefault(coll, "wall")
+            reg.histogram(
+                "repro_engine_dispatch_latency_us",
+                "wall-clock latency of timed engine dispatches",
+                labelnames=("coll",),
+            ).observe(latency_s * 1e6, coll=coll)
+
+    def record_device_latency(
+        self, coll: str, latency_s: float, *, source: str = "profiler"
+    ) -> None:
+        """A per-schedule device timing from a profiler trace (or, when the
+        trace could not be parsed, the wall fallback — labelled as such).
+        The accumulated mean is never mixed-source: the first trace-derived
+        sample evicts any wall fallbacks, and wall fallbacks never dilute a
+        profiler-labelled mean."""
+        prior = self.latency_source_by_coll.get(coll)
+        if source == "profiler":
+            if prior != "profiler":
+                self.device_latency_by_coll.pop(coll, None)
+            self.latency_source_by_coll[coll] = "profiler"
+        elif prior == "profiler":
+            return  # keep the device-only mean; drop the wall sample
+        elif prior is None:
+            self.latency_source_by_coll[coll] = source
+        tot, n = self.device_latency_by_coll.get(coll, (0.0, 0))
+        self.device_latency_by_coll[coll] = (tot + latency_s, n + 1)
+        if source == "profiler":
+            obs_metrics.get_registry().histogram(
+                "repro_engine_device_latency_us",
+                "profiler-derived device-side schedule latency",
+                labelnames=("coll",),
+            ).observe(latency_s * 1e6, coll=coll)
+
+    def record_profiler_fallback(self, coll: str, reason: str) -> None:
+        """A ``profile_offload`` run degraded to ``source="wall"`` — count
+        it and the why, so dashboards can alert on profiler degradation
+        instead of quietly trusting wall numbers."""
+        self.profiler_fallbacks += 1
+        self.profiler_fallback_reasons[reason] = (
+            self.profiler_fallback_reasons.get(reason, 0) + 1
+        )
+        obs_metrics.get_registry().counter(
+            "repro_engine_profiler_fallbacks_total",
+            "profile_offload runs that fell back to wall-clock timing",
+            labelnames=("coll", "reason"),
+        ).inc(coll=coll, reason=reason)
+        obs_events.record("profiler_fallback", coll=coll, reason=reason)
 
     def record_backend_fallback(self, coll: str, reason: str) -> None:
         """A descriptor named a lowering backend whose capability check
@@ -167,6 +230,12 @@ class EngineTelemetry:
         self.backend_fallback_reasons[reason] = (
             self.backend_fallback_reasons.get(reason, 0) + 1
         )
+        obs_metrics.get_registry().counter(
+            "repro_engine_backend_fallbacks_total",
+            "lowering-backend requests that fell back to the default",
+            labelnames=("coll", "reason"),
+        ).inc(coll=coll, reason=reason)
+        obs_events.record("backend_fallback", coll=coll, reason=reason)
 
     @property
     def hit_rate(self) -> float:
@@ -237,13 +306,7 @@ class OffloadEngine:
     """
 
     def __init__(self, device: "torch.device | str" = "cuda") -> None:
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "OffloadEngine(device='cuda') needs a CUDA device and none "
-                "is available; pass device='cpu' to run on the CPU"
-            )
-        self.device = resolve_device(device)
+        self.device = checked_device(device, "OffloadEngine(device='cuda')")
         self._cache: Dict[bytes, CompiledSchedule] = {}
         # planned descriptors cache-key on the *optimized plan*, not the raw
         # words: _plan_memo maps normalized words -> plan; _fp_memo memoizes
@@ -555,7 +618,30 @@ class OffloadEngine:
         driver dispatches are timed on the host clock, bracketed by
         ``torch.cuda.synchronize()`` on a GPU; spmd dispatches run inside
         the caller's program and are not timed.
+
+        When a collecting tracer is installed (:mod:`repro_torch.obs.tracing`)
+        the dispatch is wrapped in ``engine``-category spans, and planned
+        *sim*-mode requests run the traced lowering — cached under a
+        separate key (``|traced``), so the untraced schedule is untouched —
+        emitting one span per plan phase and one per communication round
+        (K1's rounds split its phase evenly). Driver and spmd dispatches only
+        get the spans around the dispatch. With the default no-op tracer the
+        dispatch and the schedule cache are exactly the untraced path.
         """
+        tracer = obs_tracing.get_tracer()
+        if not tracer.enabled:
+            return self._offload(descriptor, x, axis_name, mesh, None)
+        with tracer.span("engine.offload", "engine") as span:
+            return self._offload(descriptor, x, axis_name, mesh, span)
+
+    def _offload(
+        self,
+        descriptor: "CollectiveDescriptor | np.ndarray",
+        x: Optional[PyTree],
+        axis_name: AxisSpec,
+        mesh: Any,
+        span: Any,
+    ) -> PyTree:
         try:
             desc = self._as_descriptor(descriptor)
         except Exception:
@@ -565,6 +651,10 @@ class OffloadEngine:
             axis_name = tuple(axis_name) or None
         if mesh is not None and axis_name is None:
             raise ValueError("driver mode (mesh=...) requires axis_name")
+        # planned sim requests run the traced lowering under a tracer; it
+        # lives under its own cache key so the untraced schedule is never
+        # evicted or shadowed
+        traced = span is not None and axis_name is None and mesh is None
         if len(desc.axes) > 1:
             try:
                 plan, words = self._plan_for(desc)
@@ -575,13 +665,39 @@ class OffloadEngine:
             key = self._planned_cache_key(
                 words, plan, axis_name, mesh, backend_fields=bfields
             )
+            if traced:
+                key += b"|traced"
             self._plans.setdefault(key, plan)
         else:
+            traced = False
             key = self._cache_key(desc, axis_name, mesh)
+        if span is not None:
+            span.set(
+                coll=desc.coll_type.name.lower(),
+                mode=self._mode_tag(axis_name, mesh),
+                p=int(desc.comm_size),
+                traced_plan=traced,
+            )
         sched = self._cache.get(key)
+        cache_events = obs_metrics.get_registry().counter(
+            "repro_engine_cache_events_total",
+            "compiled-schedule cache lookups",
+            labelnames=("event",),
+        )
         if sched is None:
             try:
-                sched = self._compile(desc, key, axis_name, mesh)
+                if span is not None:
+                    with obs_tracing.get_tracer().span(
+                        "engine.compile", "engine",
+                        coll=desc.coll_type.name.lower(),
+                    ):
+                        sched = self._compile(
+                            desc, key, axis_name, mesh, traced=traced
+                        )
+                else:
+                    sched = self._compile(
+                        desc, key, axis_name, mesh, traced=traced
+                    )
             except Exception:
                 self.telemetry.errors += 1
                 raise
@@ -589,8 +705,19 @@ class OffloadEngine:
             self.telemetry.misses += 1
             self.telemetry.compiles += 1
             self.telemetry.cache_size = len(self._cache)
+            cache_state = "miss"
+            if span is not None:
+                span.set(cache="miss")
+            cache_events.inc(event="miss")
+            obs_events.record(
+                "cache_miss", coll=sched.coll, scope="schedule"
+            )
         else:
             self.telemetry.hits += 1
+            cache_state = "hit"
+            if span is not None:
+                span.set(cache="hit")
+            cache_events.inc(event="hit")
 
         timed = axis_name is None or mesh is not None
         device = self.device if mesh is None else mesh.device
@@ -600,20 +727,49 @@ class OffloadEngine:
         elif timed:
             self._validate_payload(desc, x, device)
 
-        if not timed:
+        if timed:
+            on_gpu = device.type == "cuda"
+            if on_gpu:
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
             out = sched.fn(x)
-            self.telemetry.record_dispatch(sched.coll, None)
-            return out
-        on_gpu = device.type == "cuda"
-        if on_gpu:
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        out = sched.fn(x)
-        if on_gpu:
-            torch.cuda.synchronize(device)
-        latency = time.perf_counter() - t0
+            if on_gpu:
+                torch.cuda.synchronize(device)
+            latency = time.perf_counter() - t0
+        else:
+            out = sched.fn(x)
+            latency = None  # inside the caller's program: not timed
         self.telemetry.record_dispatch(sched.coll, latency)
+        obs_events.record(
+            "dispatch",
+            coll=sched.coll,
+            cache=cache_state,
+            latency_us=None if latency is None else round(latency * 1e6, 1),
+        )
         return out
+
+    def profile_offload(
+        self,
+        descriptor: "CollectiveDescriptor | np.ndarray",
+        x: Optional[PyTree] = None,
+        *,
+        axis_name: AxisSpec = None,
+        mesh: Any = None,
+        warmup: int = 1,
+        trace_dir: Optional[str] = None,
+    ):
+        """Dispatch once under a ``torch.profiler`` trace and record the
+        device-side schedule time into the telemetry. Returns a
+        :class:`repro_torch.offload.profiling.DeviceTiming`. Pass
+        ``trace_dir`` to keep the chrome trace on disk (e.g. for
+        :func:`repro_torch.obs.export.merge_device_trace`).
+        """
+        from repro_torch.offload.profiling import profile_offload as _profile
+
+        return _profile(
+            self, descriptor, x, axis_name=axis_name, mesh=mesh,
+            warmup=warmup, trace_dir=trace_dir,
+        )
 
     def cache_size(self) -> int:
         return len(self._cache)
@@ -656,6 +812,8 @@ class OffloadEngine:
         key: bytes,
         axis_name: AxisSpec = None,
         mesh: Any = None,
+        *,
+        traced: bool = False,
     ) -> CompiledSchedule:
         op = get_operator(wire_op_name(desc.operation))
         algo = desc.algo_type
@@ -669,7 +827,8 @@ class OffloadEngine:
 
         if len(desc.axes) > 1:
             fn, bname = self._build_planned(
-                desc, op, axis_name, plan=self._plans.get(key)
+                desc, op, axis_name, plan=self._plans.get(key),
+                traced=traced,
             )
             algo = f"plan{desc.split}:{algo}"
             if desc.optimized:
@@ -679,6 +838,8 @@ class OffloadEngine:
             if bname is not None:
                 # only non-default backends tag the schedule
                 algo = f"{bname}:{algo}"
+            if traced:
+                algo = f"traced:{algo}"
         elif axis_name is not None:
             one = axis_name
             if not isinstance(one, str):
@@ -741,12 +902,13 @@ class OffloadEngine:
 
     def _build_planned(
         self, desc: CollectiveDescriptor, op: AssocOp, axis_name: AxisSpec,
-        plan,
+        plan, traced: bool = False,
     ) -> "Tuple[Callable[[PyTree], PyTree], Optional[str]]":
         """Lower a multi-axis descriptor through the lowering-backend
         registry; returns ``(fn, backend_tag)`` where the tag is the
         resolved backend's name for non-defaults and ``None`` when the mode
-        default lowered the plan."""
+        default lowered the plan. ``traced`` builds the span-emitting sim
+        lowering."""
         from repro_torch.offload import backends
 
         if plan is None:
@@ -769,7 +931,9 @@ class OffloadEngine:
             else None
         )
         if axis_name is None:
-            return backend.lower(plan, op, device=self.device), tag
+            return backend.lower(
+                plan, op, device=self.device, traced=traced
+            ), tag
         return backend.lower(plan, op, axis_names=tuple(axis_name)), tag
 
     @staticmethod

@@ -49,6 +49,8 @@ from repro_torch.core.selector import (
     select_algorithm,
 )
 from repro_torch.core.trees import resolve_device, tree_device, tree_map
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 
 PyTree = Any
 
@@ -842,6 +844,7 @@ def lower_sim(
     op: "AssocOp | str | None" = None,
     *,
     device: "torch.device | str" = "cuda",
+    traced: bool = False,
 ):
     """Compile a plan to a function over flat stacked ``(p, ...)`` leaves on
     ``device`` (a payload on another device raises).
@@ -850,6 +853,23 @@ def lower_sim(
     is reshaped to the logical mesh shape, phases run along single mesh axes,
     and the output is flattened back — directly comparable (bitwise, given
     exact arithmetic) to the flat single-axis reference collective.
+
+    Each comm phase keeps one :class:`~repro_torch.core.algorithms.SimBackend`
+    for the life of the lowering, so the index tensors of its permutes are
+    made on the first call only: a schedule run once can then be captured
+    into a CUDA graph (the tuner's amortized timing does).
+
+    With ``traced=True`` the interpreter emits one ``phase``-category span
+    per plan phase and one ``round``-category span per communication round
+    (every ``backend.permute``, via
+    :class:`repro_torch.obs.tracing.TracingBackend`, which synchronizes the
+    device on each permuted result so the span's duration is the round's
+    whole cost). It resolves the active tracer at call time, so one traced
+    callable serves successive ``tracing()`` contexts; phase and round
+    latencies also land in the shared metrics registry
+    (``repro_phase_latency_us`` / ``repro_round_latency_us``). The traced
+    path performs the same arithmetic as the untraced one, and the engine
+    caches it under its own key, so the default path is untouched.
 
     Interpreter layouts: the unoptimized path moves every phase operand to
     the front and back again. For an *optimized* plan (``plan.optimized``)
@@ -867,6 +887,8 @@ def lower_sim(
     p_total = plan.p
     threaded = plan.optimized
     chunks = max(1, int(plan.chunking))
+    coll_name = plan.coll.name.lower()
+    sim_backends = [alg.SimBackend(p_axis, device) for p_axis in logical]
 
     def to_mesh(tree: PyTree) -> PyTree:
         return tree_map(lambda a: a.reshape(logical + tuple(a.shape[1:])), tree)
@@ -900,12 +922,10 @@ def lower_sim(
             )
             return views[layout]
 
-        if plan.coll == CollType.BARRIER:
-            set_reg("x", torch.ones(logical, dtype=torch.float32, device=device), None)
-        else:
-            _check_device(x, device)
-            set_reg("x", to_mesh(x), None)
-        for ph in plan.phases:
+        def run_phase(ph, wrap) -> Tuple[PyTree, Any]:
+            """Run one plan phase into the registers; returns the tree it
+            produced and the comm backend it ran on (None for COMBINE and
+            IDENTITY). ``wrap`` (or None) wraps that backend."""
             if ph.kind == PhaseKind.COMBINE:
                 carry = get_reg(ph.src[0], None)
                 local = get_reg(ph.src[1], None)
@@ -914,12 +934,15 @@ def lower_sim(
                     mask = _zero_coord_mask(logical, ph.guard_levels, device)
                     merged = alg._bwhere(mask, local, merged)
                 set_reg(ph.dst, merged, None)
-                continue
+                return merged, None
             if ph.kind == PhaseKind.IDENTITY:
-                set_reg(ph.dst, op.identity_like(get_reg(ph.src[0], None)), None)
-                continue
+                out = op.identity_like(get_reg(ph.src[0], None))
+                set_reg(ph.dst, out, None)
+                return out, None
             p_axis = logical[ph.level]
-            backend = alg.SimBackend(p_axis, device)
+            backend = sim_backends[ph.level]
+            if wrap is not None:
+                backend = wrap(backend)
             if ph.kind == PhaseKind.SCAN:
                 if chunks > 1:
                     fn = lambda t: _sim_scan_chunked(  # noqa: E731
@@ -974,6 +997,37 @@ def lower_sim(
                     set_reg(ph.dst2, out[1], None)
                 else:
                     set_reg(ph.dst, out, None)
+            return out, backend
+
+        if plan.coll == CollType.BARRIER:
+            set_reg("x", torch.ones(logical, dtype=torch.float32, device=device), None)
+        else:
+            _check_device(x, device)
+            set_reg("x", to_mesh(x), None)
+        tracer = obs_tracing.get_tracer() if traced else obs_tracing.NOOP
+        for ph in plan.phases:
+            if not tracer.enabled:
+                run_phase(ph, None)
+                continue
+            name = ph.kind.name
+            t0 = obs_tracing.now_us()
+            with tracer.span(
+                f"plan.phase:{name}:L{ph.level}", "phase", kind=name,
+                level=ph.level, algorithm=ph.algorithm, coll=coll_name,
+            ) as span:
+                out, backend = run_phase(
+                    ph,
+                    lambda b: obs_tracing.TracingBackend(
+                        b, tracer, phase=f"{name}:L{ph.level}",
+                        on_round=lambda idx, dur_us: obs_metrics.observe_round(
+                            coll_name, name, idx, dur_us
+                        ),
+                    ),
+                )
+                obs_tracing._block(out)
+                if backend is not None:
+                    span.set(rounds=backend.rounds)
+            obs_metrics.observe_phase(coll_name, name, obs_tracing.now_us() - t0)
         return to_flat(get_reg(plan.result, None))
 
     return run

@@ -26,7 +26,15 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     mods = _modules()
     for mod in ("repro_torch.kernels.fused_collective", "repro_torch.compat",
                 "repro_torch.kernels.spmd_collective",
-                "repro_torch.testing.spmd_check"):
+                "repro_torch.testing.spmd_check",
+                "repro_torch.obs", "repro_torch.obs.metrics",
+                "repro_torch.obs.events", "repro_torch.obs.tracing",
+                "repro_torch.obs.export",
+                "repro_torch.offload.tuning_cache",
+                "repro_torch.offload.tuner",
+                "repro_torch.offload.profiling",
+                "repro_torch.testing.obs_check",
+                "repro_torch.testing.fusion_check"):
         assert mod in mods
     code = (
         "import importlib, sys\n"
