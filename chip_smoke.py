@@ -37,7 +37,44 @@ non-zero without printing a result:
               lowering and, on a small input, against numpy. K1's launch
               counts (in all and by path) are zeroed right before and read
               right after: every launch on the register path.
-5. entry    — the on-chip entry points at full width: Mamba2-130m's segment
+5. service  — the multi-tenant broker (``DescriptorBroker`` over
+              ``OffloadEngine()``, its flush thread on the card): 1, 8 and
+              64 client threads stream SCAN, EXSCAN and ALLREDUCE at axes
+              (1, 8) through K1 (``backend="pallas"``, ``chunks=1``),
+              float32 and int32 SUM, 4 B - 1 MiB per rank, each round
+              posted together, with coalescing on (up to 64 tenants, a
+              fused (8, k, n) payload of up to 512 MiB) and off
+              (``max_coalesce=1``), in turns (on, off, off, on). Every
+              result bitwise == a direct ``offload`` of the same request
+              through the default lowering, so K1 is held against its plain
+              counterpart at the coalesced shapes; K1's counts zeroed
+              right before each run and read
+              right after: at least one launch per fused dispatch, all on
+              the register path; no backend fallback; coalesce factor > 1
+              with it on; writing into one ticket's result leaves the
+              others alone. Prints requests/s, client p50/p99 latency, the
+              coalesce factor and K1 launches per request.
+6. reliability — ``repro_torch.testing.chaos_check`` on the card at (2, 4)
+              and at (1, 8), on the default backend as the reference runs
+              it: all five CollTypes bitwise through seeded 5% drop +
+              corrupt chaos (retries), a poisoned payload quarantined by
+              bisection, the breaker tripped, degraded to
+              ``reference_collective`` and recovered, ``healthz``. Then
+              ``ReliableDispatcher`` without chaos: no retry or degrade,
+              every dispatch on K1's register path, each result bitwise
+              against the default lowering. Then the layer's cost, on and
+              off in turns on one broker (the reference benchmark's 8 MiB
+              int32 SCAN at (2, 4) on the default lowering, where K1
+              declines the two-axis plan, and at (1, 8) through K1, every
+              dispatch counted on K1), and ``payload_checksum`` at 16 KiB
+              and 8 MiB.
+7. health   — ``repro_torch.testing.health_check`` at (2, 4) on the card
+              (a link-probed traced dispatch with one link slowed: the
+              detector names that link and no other; sim, driver-mode and
+              probed results bitwise; a deadline-miss SLO alert; the flight
+              recorder's dump); ``HealthMonitor.ingest`` of a broker's and
+              its engine's telemetry and ``render_dashboard`` of both.
+8. entry    — the on-chip entry points at full width: Mamba2-130m's segment
               scan, OLMoE's expert offsets, memory-bound (8192, 8192) scans,
               Mamba2-130m's SSD recurrence, SmolLM-360M and Gemma3-27B
               attention and a decode step. The launch counts of K3, K4 (also
@@ -45,7 +82,7 @@ non-zero without printing a result:
               (one a call for K3 and K4; for K5 the launches its C entry
               reports, held to ``plan_launch``'s count); each result is held
               against its plain version.
-6. spmd     — the per-rank path: K2 (the per-rank collective kernel)
+9. spmd     — the per-rank path: K2 (the per-rank collective kernel)
               through ``get_backend("pallas").lower(plan, op,
               axis_names=("i",))`` under the port's ``shard_map`` on
               co-resident meshes of 8 and 16 ranks on the card (its cluster
@@ -60,12 +97,12 @@ non-zero without printing a result:
               after. Then the engine in driver mode (a mesh passed to
               ``offload``) for the five CollTypes and a planned (2, 4) SCAN,
               bitwise against sim mode.
-7. baseline — the paper's comparison (Figs. 4-5) at p = 8, float32 SUM:
+10. baseline — the paper's comparison (Figs. 4-5) at p = 8, float32 SUM:
               host-stepped ``host_scan`` (a dispatch and a sync per hop)
               against the whole schedule as one CUDA graph replay, and K1
               through the engine for hillis_steele; host_scan == sim_scan
               bitwise.
-8. tune     — the tuner on the card (``repro_torch.offload.tuner``):
+11. tune     — the tuner on the card (``repro_torch.offload.tuner``):
               ``autotune`` over p = 2-16 x 1 KiB - 1 MiB x the five colls x
               every applicable algorithm (eager, CUDA events),
               ``tune_schedule`` over (1, 8), (1, 16) and (2, 4) x
@@ -80,7 +117,7 @@ non-zero without printing a result:
               float32 MAX) and within ``scan_tolerance`` of float64 numpy
               (float32 SUM). Prints the fit, the p = 8 winners beside
               ``DEFAULT_LINK_MODEL``'s picks and the backend races.
-9. profile  — ``profile_offload`` (``torch.profiler``) of hillis_steele
+12. profile  — ``profile_offload`` (``torch.profiler``) of hillis_steele
               SCAN at p = 8 over the baseline sizes: K1 and the default
               lowering in sim mode, driver mode, the (2, 4) optimized plan
               in driver mode, and K2's per-rank lowering (``profile_call``);
@@ -92,7 +129,7 @@ non-zero without printing a result:
               ``engine.compile`` / phase span -> ``phase_round_count``
               round spans, the merged host+device trace aligned, the
               engine's series in the Prometheus text.
-10. times   — every kernel, its plain version and one PyTorch library call
+13. times   — every kernel, its plain version and one PyTorch library call
               at the main and entry shapes: device time from
               ``torch.profiler`` and the per-call time with CUDA events
               (host overhead included), beside the least time the card's
@@ -644,6 +681,385 @@ def phase_main(torch, device):
         "ok": True,
     })
     return launches
+
+# ---------------------------------------------------------------------------
+# The service layer: the broker's coalesced dispatches, reliability, health
+# ---------------------------------------------------------------------------
+
+SERVICE_CLIENTS = (1, 8, 64)
+SERVICE_SIZES = (4, 1 << 10, 64 << 10, 1 << 20)
+SERVICE_COLLS = ("SCAN", "EXSCAN", "ALLREDUCE")
+SERVICE_ROUNDS = 6  # requests per client: each coll twice
+SERVICE_FLUSH_S = 0.002  # the reference broker's default window
+#: the reference's overhead benchmark (benchmarks/reliability_overhead.py)
+RELIABILITY_COLS = 262144  # x 8 ranks x int32 = 8 MiB
+RELIABILITY_BATCH, RELIABILITY_REPS = 8, 12
+
+
+def bitwise(torch, got, want, what):
+    if not torch.equal(got, want):
+        assert_match(torch, got, want, 0.0, 0.0, what)  # raises, with detail
+
+
+def reset_k1_counts(fc):
+    fc.launches = 0
+    for key in fc.path_launches:
+        fc.path_launches[key] = 0
+
+
+def percentile_us(samples, q):
+    import numpy as np
+
+    return round(float(np.percentile(np.asarray(samples) * 1e6, q)), 3)
+
+
+def service_run(eng, reqs, coalesce):
+    """C client threads (one per row of ``reqs``) stream their requests
+    through one started broker, every round posted together; returns
+    (results by client and round, client latencies in s, wall s, broker)."""
+    import threading
+
+    from repro_torch.service import DescriptorBroker
+
+    C, R = len(reqs), len(reqs[0])
+    broker = DescriptorBroker(
+        eng, flush_interval_s=SERVICE_FLUSH_S,
+        max_coalesce=64 if coalesce else 1, max_tenants=64,
+    ).start()
+    clients = [broker.client(f"t{c}") for c in range(C)]
+    gate = threading.Barrier(C)
+    results = [[None] * R for _ in range(C)]
+    lat = [[0.0] * R for _ in range(C)]
+    errors = []
+
+    def work(c):
+        try:
+            for r, (desc, x) in enumerate(reqs[c]):
+                gate.wait()
+                t0 = time.perf_counter()
+                results[c][r] = clients[c].submit(desc.encode(), x).result(120)
+                lat[c][r] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+            gate.abort()
+
+    threads = [threading.Thread(target=work, args=(c,)) for c in range(C)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    broker.stop()
+    if errors:
+        raise errors[0]
+    return results, [s for row in lat for s in row], wall, broker
+
+
+def phase_service(torch, device):
+    """DescriptorBroker over OffloadEngine() on the card: 1, 8 and 64 client
+    threads stream SCAN/EXSCAN/ALLREDUCE at axes (1, 8) through K1
+    (backend "pallas"), float32 and int32 SUM, 4 B - 1 MiB per rank, with
+    coalescing on (max_coalesce 64) and off (1). Every result bitwise ==
+    a direct offload of the same request through the default lowering
+    (K1's plain counterpart, at the coalesced shapes K1 ran); K1's counts
+    zeroed right before each run and read right after: at least one launch
+    per fused dispatch, all on the register path; no fallback; coalesce
+    factor > 1 with it on."""
+    from repro_torch import OffloadEngine
+    from repro_torch.core.packet import WireDType
+    from repro_torch.kernels import fused_collective as fc
+
+    t0 = time.perf_counter()
+    eng = OffloadEngine()  # the GPU is the default
+    ref_eng = OffloadEngine()
+    if eng.device.type != device.type:
+        raise AssertionError(f"OffloadEngine() chose {eng.device}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(19)
+    rows = []
+    for C in SERVICE_CLIENTS:
+        for nb in SERVICE_SIZES:
+            for dtype in (torch.float32, torch.int32):
+                wire = getattr(WireDType, dtype_name(dtype).upper())
+                descs, ref_descs = ([eng.make_descriptor(
+                    coll, axes=(1, 8), payload_bytes=nb, backend=backend,
+                    chunks=1, data_type=wire,
+                ) for coll in SERVICE_COLLS] for backend in ("pallas", ""))
+                reqs = []
+                for _c in range(C):
+                    reqs.append([])
+                    for r in range(SERVICE_ROUNDS):
+                        x = torch.randint(-1000, 1000, (8, nb // 4),
+                                          generator=gen, device=device)
+                        reqs[-1].append((descs[r % len(descs)], x.to(dtype)))
+                # the references take the default lowering: no K1 on either
+                # side of the comparison
+                refs = [[ref_eng.offload(ref_descs[r % len(descs)], x)
+                         for r, (_d, x) in enumerate(row)] for row in reqs]
+                torch.cuda.synchronize(device)
+                row = {"clients": C, "bytes": nb,
+                       "dtype": dtype_name(dtype), "on": {}, "off": {}}
+                # in turns, on-off-off-on: a warm-up or drift of the host
+                # favours neither mode
+                for coalesce in (True, False, False, True):
+                    fallbacks = eng.telemetry.backend_fallbacks
+                    reset_k1_counts(fc)
+                    results, lat, wall, broker = service_run(
+                        eng, reqs, coalesce)
+                    launches, paths = fc.launches, dict(fc.path_launches)
+                    snap = broker.telemetry.snapshot()
+                    what = (f"service C={C} {nb}B {dtype_name(dtype)} "
+                            f"coalesce={coalesce}")
+                    for got_row, ref_row in zip(results, refs):
+                        for got, want in zip(got_row, ref_row):
+                            bitwise(torch, got, want, what)
+                    if launches < snap["fused_dispatches"]:
+                        raise AssertionError(
+                            f"{what}: K1 launched {launches} times for "
+                            f"{snap['fused_dispatches']} fused dispatches")
+                    if paths != {"register": launches, "column": 0}:
+                        raise AssertionError(f"{what}: K1 paths {paths}")
+                    if eng.telemetry.backend_fallbacks != fallbacks:
+                        raise AssertionError(f"{what}: backend fallbacks")
+                    factor = snap["coalesce_factor"]
+                    if coalesce and C > 1 and not factor > 1.0:
+                        raise AssertionError(f"{what}: coalesce factor {factor}")
+                    if not coalesce and factor != 1.0:
+                        raise AssertionError(f"{what}: coalesce factor {factor}")
+                    n = C * SERVICE_ROUNDS
+                    reading = {
+                        "requests_per_s": round(n / wall, 1),
+                        "p50_us": percentile_us(lat, 50),
+                        "p99_us": percentile_us(lat, 99),
+                        "coalesce_factor": round(factor, 3),
+                        "fused_dispatches": snap["fused_dispatches"],
+                        "k1_launches": launches,
+                        "k1_launches_per_request": round(launches / n, 4),
+                    }
+                    mode = row["on" if coalesce else "off"]
+                    for key, value in reading.items():
+                        mode.setdefault(key, []).append(value)
+                    if C == 8 and nb == 1 << 10 and coalesce \
+                            and "tickets_independent" not in row:
+                        # each ticket owns its result: writing into one
+                        # leaves every other one alone
+                        firsts = [res[0] for res in results]
+                        saved = [t.clone() for t in firsts]
+                        firsts[0].add_(1)
+                        for got, want in zip(firsts[1:], saved[1:]):
+                            bitwise(torch, got, want,
+                                    what + " (a neighbour written)")
+                        row["tickets_independent"] = True
+                    del results
+                row["on_over_off"] = round(
+                    sum(row["on"]["requests_per_s"])
+                    / sum(row["off"]["requests_per_s"]), 3)
+                rows.append(row)
+                emit({"phase": "service", **row})
+                del reqs, refs
+    emit({"phase": "service", "runs": len(rows) * 4,
+          "seconds": round(time.perf_counter() - t0, 3), "ok": True})
+    return rows
+
+
+def check_module(module, args, device):
+    """Run one of the port's check modules in-process on ``device``; fails
+    the phase unless it returns 0 (it prints ALL-OK)."""
+    mod = importlib.import_module(f"repro_torch.testing.{module}")
+    extra = [] if device.type == "cuda" else ["--device", "cpu"]
+    rc = mod.main(list(args) + extra)
+    if rc != 0:
+        raise AssertionError(f"{module} {' '.join(args)} returned {rc}")
+
+
+def phase_reliability(torch, device):
+    """The reference's chaos check on the card (seeded 5% drop + corrupt,
+    all five CollTypes bitwise through retries; bisection quarantine;
+    breaker trip, degrade to reference_collective, recover; healthz) at
+    axes (2, 4) and (1, 8) on the default backend, as the reference runs
+    it (under a chaos scope a fused-backend descriptor runs K1, which
+    fails no message); then the happy path through ReliableDispatcher: no
+    degrade, every dispatch on K1, each result bitwise == the default
+    lowering's; then the reliability layer's cost as an A/B in turns on one
+    broker (the reference benchmark's 8 MiB int32 SCAN at (2, 4), where K1
+    declines the two-axis plan, and the same bytes at (1, 8) through K1)
+    and payload_checksum's time."""
+    from repro_torch import OffloadEngine
+    from repro_torch.kernels import fused_collective as fc
+    from repro_torch.offload import reliability as rel
+    from repro_torch.service import DescriptorBroker
+
+    t0 = time.perf_counter()
+    check_module("chaos_check", ["2", "4"], device)
+    check_module("chaos_check", ["1", "8"], device)
+    chaos_s = time.perf_counter() - t0
+
+    eng = OffloadEngine()
+    disp = rel.ReliableDispatcher.from_policy(eng, rel.ReliabilityPolicy())
+    desc = eng.make_descriptor("scan", axes=(1, 8), payload_bytes=1 << 20,
+                               backend="pallas", chunks=1)
+    x = torch.randn((8, 1 << 18), device=device)
+    want = eng.offload(eng.make_descriptor(
+        "scan", axes=(1, 8), payload_bytes=1 << 20, backend="", chunks=1), x)
+    fallbacks = eng.telemetry.backend_fallbacks
+    reset_k1_counts(fc)
+    outs = [disp.offload(desc, x) for _ in range(16)]
+    torch.cuda.synchronize(device)
+    launches, paths = fc.launches, dict(fc.path_launches)
+    for got in outs:
+        bitwise(torch, got, want, "reliable happy path")
+    if disp.counts["degrades"] or disp.counts["retries"] or \
+            disp.counts["reference_dispatches"]:
+        raise AssertionError(f"happy path took {disp.counts}")
+    if launches < len(outs) or paths != {"register": launches, "column": 0}:
+        raise AssertionError(f"happy path K1 launches {paths}")
+    if eng.telemetry.backend_fallbacks != fallbacks:
+        raise AssertionError("happy path took a backend fallback")
+
+    overhead = [reliability_ab(torch, device, DescriptorBroker, rel, axes, kw)
+                for axes, kw in (((2, 4), {}),
+                                 ((1, 8), {"backend": "pallas", "chunks": 1}))]
+
+    checksum_us = {}
+    for nb in (16 << 10, 8 << 20):
+        y = torch.randint(0, 1 << 20, (8, nb // 32), dtype=torch.int32,
+                          device=device)
+        rel.payload_checksum(y)
+        iters = 200
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        for _ in range(iters):
+            rel.payload_checksum(y)
+        checksum_us[str(nb)] = round((time.perf_counter() - t1) / iters * 1e6, 3)
+    emit({"phase": "reliability", "chaos_s": round(chaos_s, 3),
+          "seconds": round(time.perf_counter() - t0, 3),
+          "happy_path": {"dispatches": len(outs), "k1_launches": launches,
+                         **disp.counts},
+          "overhead": overhead, "checksum_us": checksum_us, "ok": True})
+    return overhead, checksum_us
+
+
+def reliability_ab(torch, device, DescriptorBroker, rel, axes, kw):
+    """The reference's A/B (benchmarks/reliability_overhead.py): one broker,
+    the same submit/drain loop with the reliability layer installed and
+    detached, modes in turns in both orders, median per trial, best of
+    two trials; host clock, each dispatch synchronized by the engine. K1's
+    counts are zeroed before the A/B and read after it: through the fused
+    backend every dispatch launched K1 on the register path, through the
+    default one K1 never; either way no backend fallback."""
+    import numpy as np
+
+    from repro_torch import OffloadEngine
+    from repro_torch.kernels import fused_collective as fc
+
+    broker = DescriptorBroker(OffloadEngine(),
+                              reliability=rel.ReliabilityPolicy())
+    eng = broker.engine
+    desc = eng.make_descriptor("scan", axes=axes,
+                               payload_bytes=RELIABILITY_COLS * 4,
+                               optimize=True, **kw)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    x = torch.randint(0, 1 << 20, (8, RELIABILITY_COLS), generator=gen,
+                      dtype=torch.int32, device=device)
+    client = broker.client("bench")
+    modes = {"on": (broker._dispatcher, broker.reliability),
+             "off": (None, None)}
+    on_state = modes["on"]
+    dispatches = 0
+
+    def sample(mode):
+        nonlocal dispatches
+        dispatches += RELIABILITY_BATCH
+        broker._dispatcher, broker.reliability = modes[mode]
+        try:
+            t0 = time.perf_counter()
+            for _ in range(RELIABILITY_BATCH):
+                t = client.submit(desc, x)
+                broker.drain()
+            t.result(timeout=120.0)
+            return (time.perf_counter() - t0) / RELIABILITY_BATCH * 1e6
+        finally:
+            broker._dispatcher, broker.reliability = on_state
+
+    fused = kw.get("backend") == "pallas"
+    fallbacks = eng.telemetry.backend_fallbacks
+    reset_k1_counts(fc)
+    for mode in ("on", "off"):
+        sample(mode)
+    trials = []
+    for _ in range(2):
+        got = {"on": [], "off": []}
+        for rep in range(RELIABILITY_REPS):
+            for mode in (("on", "off") if rep % 2 == 0 else ("off", "on")):
+                got[mode].append(sample(mode))
+        on_us, off_us = (float(np.median(got[m])) for m in ("on", "off"))
+        trials.append({"on_us": round(on_us, 3), "off_us": round(off_us, 3),
+                       "overhead_frac": round((on_us - off_us) / off_us, 5)})
+    torch.cuda.synchronize(device)
+    launches, paths = fc.launches, dict(fc.path_launches)
+    fallbacks = eng.telemetry.backend_fallbacks - fallbacks
+    what = f"reliability A/B at {axes}"
+    if fallbacks:
+        raise AssertionError(f"{what}: {fallbacks} backend fallbacks")
+    # the fused leg: every dispatch, in both modes, on K1's register path;
+    # the default leg: K1 never launched
+    if fused and (launches < dispatches
+                  or paths != {"register": launches, "column": 0}):
+        raise AssertionError(f"{what}: K1 launches {paths} for {dispatches} "
+                             f"dispatches")
+    if not fused and launches:
+        raise AssertionError(f"{what}: K1 launched {launches} times")
+    best = min(trials, key=lambda t: t["overhead_frac"])
+    return {"axes": list(axes), "backend": kw.get("backend", ""),
+            "bytes": 8 * RELIABILITY_COLS * 4, "dispatches": dispatches,
+            "k1_launches": launches, "backend_fallbacks": fallbacks,
+            "trials": trials, **best}
+
+
+def phase_health(torch, device):
+    """The health layer on the card: the reference's health check at
+    (2, 4) (a traced dispatch with link_probe=True and a LinkDelayInjector
+    slowing link (1, 0, 1): the detector names that link and no other of
+    its seven peers; sim, driver-mode and probed results bitwise; a
+    deadline SLO alert; the flight recorder's dump); then
+    HealthMonitor.ingest of an engine's and a broker's snapshots and
+    render_dashboard of both."""
+    from repro_torch import OffloadEngine
+    from repro_torch.obs import dashboard as obs_dashboard
+    from repro_torch.obs import health as obs_health
+    from repro_torch.service import DescriptorBroker
+
+    t0 = time.perf_counter()
+    check_module("health_check", ["2", "4"], device)
+    check_s = time.perf_counter() - t0
+
+    broker = DescriptorBroker(OffloadEngine())
+    desc = broker.make_descriptor("scan", axes=(1, 8), payload_bytes=1 << 10,
+                                  backend="pallas", chunks=1)
+    monitor = obs_health.HealthMonitor()
+    clients = [broker.client(f"h{c}") for c in range(4)]
+    for _ in range(3):
+        for client in clients:
+            client.submit(desc, torch.ones((8, 256), device=device))
+        broker.drain()
+        monitor.ingest(service=broker.telemetry, engine=broker.engine.telemetry)
+    hz = monitor.healthz()
+    if hz["status"] != "ok":
+        raise AssertionError(f"healthz after clean dispatches: {hz}")
+    text = obs_dashboard.render_dashboard(engine=broker.engine, broker=broker,
+                                          monitor=monitor)
+    for section in ("-- engine", "-- service", "-- health: OK",
+                    "-- flight recorder", "coalesce 4.00"):
+        if section not in text:
+            raise AssertionError(f"dashboard lacks {section!r}:\n{text}")
+    print(text, flush=True)
+    emit({"phase": "health", "check_s": round(check_s, 3),
+          "seconds": round(time.perf_counter() - t0, 3),
+          "healthz": hz["status"], "slos": hz["slos"],
+          "dashboard_lines": len(text.splitlines()), "ok": True})
+
 
 # ---------------------------------------------------------------------------
 # K3-K5: the on-chip entry points of repro_torch.kernels
@@ -2438,6 +2854,9 @@ def main() -> int:
     phase_kernel(torch, device)
     phase_onchip(torch, device)
     launches = phase_main(torch, device)
+    phase_service(torch, device)
+    phase_reliability(torch, device)
+    phase_health(torch, device)
     entry_launches, cases = phase_entry(torch, device)
     spmd_launches = phase_spmd(torch, device)
     phase_baseline(torch, device)

@@ -154,8 +154,16 @@ class SimBackend(Backend):
 
     The index tensors are made once per permutation and kept on the backend:
     a later call with the same permutation copies nothing from the host, so
-    a schedule run once can then be captured into a CUDA graph.
+    a schedule run once can then be captured into a CUDA graph. A round's
+    destinations are unique, so a permutation is the *set* of its pairs:
+    repeated or reordered pairs (a chaos wrapper's duplicates and reversed
+    rounds) give the same rows and share one entry. At most
+    ``MAX_CACHED_PERMS`` entries are kept; a permutation past them (a chaos
+    run's silent drops leave arbitrary subsets) gets its index tensors made
+    for the call and dropped.
     """
+
+    MAX_CACHED_PERMS = 256
 
     def __init__(self, p: int, device: "torch.device | str"):
         self.p = int(p)
@@ -166,18 +174,19 @@ class SimBackend(Backend):
         return torch.arange(self.p, dtype=torch.int32, device=self.device)
 
     def _index_tensors(self, perm: Perm) -> Tuple[torch.Tensor, torch.Tensor]:
-        key = tuple(map(tuple, perm))
+        key = tuple(sorted({(int(s), int(t)) for s, t in perm}))
         got = self._indices.get(key)
         if got is None:
             got = (
-                torch.tensor([s for s, _ in perm], device=self.device),
-                torch.tensor([t for _, t in perm], device=self.device),
+                torch.tensor([s for s, _ in key], device=self.device),
+                torch.tensor([t for _, t in key], device=self.device),
             )
-            self._indices[key] = got
+            if len(self._indices) < self.MAX_CACHED_PERMS:
+                self._indices[key] = got
         return got
 
     def permute(self, tree: PyTree, perm: Perm) -> PyTree:
-        perm = list(perm)
+        perm = list(dict.fromkeys((int(s), int(t)) for s, t in perm))
         p = self.p
         d = as_contiguous_shift(perm, p)
         if d is None and perm:

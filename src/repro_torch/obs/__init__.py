@@ -15,12 +15,14 @@ Chrome/Perfetto export, metrics registry, flight recorder.
   addition to its snapshot dict.
 * :mod:`repro_torch.obs.events` — the always-on bounded flight recorder of
   structured events (dispatch, cache miss, fallbacks), dumpable to JSON.
-
-The reference's health monitor and dashboard (``repro.obs.health``,
-``repro.obs.dashboard``) come with the port's service layer, which is what
-they watch.
+* :mod:`repro_torch.obs.health` — declarative SLOs with multi-window
+  burn-rate alerting over the engine/service telemetry, plus per-link
+  straggler attribution (link-probe mode of the traced sim lowering).
+* :mod:`repro_torch.obs.dashboard` — text dashboard + stdlib HTTP endpoint
+  (``/healthz``, ``/metrics``, ``/events``).
 """
 
+from repro_torch.obs.dashboard import render_dashboard, start_http_server
 from repro_torch.obs.events import (
     FlightRecorder,
     auto_dump,
@@ -34,6 +36,14 @@ from repro_torch.obs.export import (
     merge_device_trace,
     spans_to_chrome,
     write_trace,
+)
+from repro_torch.obs.health import (
+    SLO,
+    HealthMonitor,
+    LinkDelayInjector,
+    LinkProbeBackend,
+    LinkStragglerDetector,
+    default_slos,
 )
 from repro_torch.obs.metrics import (
     Counter,
@@ -65,14 +75,20 @@ __all__ = [
     "Counter",
     "FlightRecorder",
     "Gauge",
+    "HealthMonitor",
     "Histogram",
+    "LinkDelayInjector",
+    "LinkProbeBackend",
+    "LinkStragglerDetector",
     "MetricsRegistry",
     "NoopTracer",
+    "SLO",
     "Span",
     "Tracer",
     "TracingBackend",
     "auto_dump",
     "chrome_to_spans",
+    "default_slos",
     "get_recorder",
     "get_registry",
     "get_tracer",
@@ -81,6 +97,7 @@ __all__ = [
     "merge_device_trace",
     "now_us",
     "record",
+    "render_dashboard",
     "render_prometheus",
     "reset_registry",
     "round_bucket",
@@ -88,5 +105,6 @@ __all__ = [
     "set_registry",
     "set_tracer",
     "spans_to_chrome",
+    "start_http_server",
     "write_trace",
 ]

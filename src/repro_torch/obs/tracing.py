@@ -3,17 +3,20 @@
 
 The paper's core evidence is a *measurement*: an on-NIC timer attributing
 scan latency to the network device versus the host. The software stack has
-many more places for the time to hide — schedule-cache lookup, lowering,
-the per-round host constant of the sim interpreter, the kernel launch — so
-this module provides lightweight host-side spans with explicit parent
-links:
+many more places for the time to hide — broker queue, coalescing window,
+schedule-cache lookup, lowering, the per-round host constant of the sim
+interpreter, the kernel launch — so this module provides lightweight
+host-side spans with explicit parent links:
 
-    engine.offload (cache hit/miss, engine.compile on miss)
-      ->  plan.phase:<KIND>:L<level>   (one per PlanPhase)
-        ->  plan.round:<i>             (one per communication round)
+    service.submit  ->  broker.queue_wait  ->  broker.dispatch_group
+      ->  engine.offload (cache hit/miss, engine.compile on miss)
+        ->  plan.phase:<KIND>:L<level>   (one per PlanPhase)
+          ->  plan.round:<i>             (one per communication round)
 
-Span categories (``cat``): ``engine``, ``phase``, ``round`` and
-``profile``. Timestamps are ``time.perf_counter()`` microseconds, one
+Span categories (``cat``): ``service``, ``broker``, ``engine``, ``phase``,
+``round``, ``profile``, and — in link-probe mode
+(``Tracer(link_probe=True)``, see :mod:`repro_torch.obs.health`) —
+``link``, one span per (src, dst) message of a round. Timestamps are ``time.perf_counter()`` microseconds, one
 monotonic clock for the whole process; :mod:`repro_torch.obs.export`
 serializes them to Chrome/Perfetto trace JSON and can merge the device-side
 events a ``torch.profiler`` trace records for the same dispatch.
@@ -149,14 +152,28 @@ class Tracer:
     Parent links resolve from context-manager nesting on each thread; spans
     whose bounds were measured elsewhere (cross-thread waits, a fused
     kernel's rounds) are recorded after the fact via :meth:`add_span` with
-    an explicit ``parent_id``. The reference's link-probe mode
-    (``link_probe=``) belongs to its health layer, which the port does not
-    have yet.
+    an explicit ``parent_id``.
+
+    ``link_probe=True`` makes the traced sim lowering split every round's
+    permute into per-(src, dst) messages, one ``link`` span each
+    (:class:`repro_torch.obs.health.LinkProbeBackend`); ``link_injector``
+    (a ``LinkDelayInjector`` or ``ChaosInjector``) adds per-link delay and
+    ``link_detector`` (a ``LinkStragglerDetector``) watches every message.
     """
 
     enabled = True
 
-    def __init__(self, *, max_spans: int = 200_000):
+    def __init__(
+        self,
+        *,
+        max_spans: int = 200_000,
+        link_probe: bool = False,
+        link_injector: Optional[Any] = None,
+        link_detector: Optional[Any] = None,
+    ):
+        self.link_probe = bool(link_probe)
+        self.link_injector = link_injector
+        self.link_detector = link_detector
         self._lock = threading.Lock()
         self._spans: List[Span] = []
         self._ids = itertools.count(1)

@@ -67,6 +67,7 @@ from repro_torch.obs import events as obs_events
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
 from repro_torch.offload import planner
+from repro_torch.runtime import chaos as runtime_chaos
 
 PyTree = Any
 #: one mesh axis name, or one per descriptor axis (planned requests)
@@ -665,6 +666,14 @@ class OffloadEngine:
             key = self._planned_cache_key(
                 words, plan, axis_name, mesh, backend_fields=bfields
             )
+            if not traced and axis_name is None and mesh is None \
+                    and runtime_chaos.active():
+                # a chaos scope must see (and be able to fail) individual
+                # messages, which a cached schedule would not expose: route
+                # the dispatch onto the same traced lowering — and the same
+                # cache key — the tracer uses (a fused-backend descriptor
+                # still runs its kernel there, free of faults)
+                traced = True
             if traced:
                 key += b"|traced"
             self._plans.setdefault(key, plan)

@@ -49,8 +49,10 @@ from repro_torch.core.selector import (
     select_algorithm,
 )
 from repro_torch.core.trees import resolve_device, tree_device, tree_map
+from repro_torch.obs import health as obs_health
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
+from repro_torch.runtime import chaos as runtime_chaos
 
 PyTree = Any
 
@@ -871,6 +873,16 @@ def lower_sim(
     path performs the same arithmetic as the untraced one, and the engine
     caches it under its own key, so the default path is untouched.
 
+    A traced lowering also reads the chaos injector
+    (:mod:`repro_torch.runtime.chaos`) at call time: while a scope is
+    active, :class:`~repro_torch.runtime.chaos.ChaosBackend` wraps every
+    comm phase's backend, with or without a collecting tracer (the engine
+    routes planned sim dispatches here under a scope). The untraced
+    lowering never reads it, so a CUDA graph captured from it can replay no
+    fault. Under a tracer with ``link_probe=True``,
+    :class:`~repro_torch.obs.health.LinkProbeBackend` splits each round
+    into per-message ``link`` spans.
+
     Interpreter layouts: the unoptimized path moves every phase operand to
     the front and back again. For an *optimized* plan (``plan.optimized``)
     the interpreter threads layouts: every register remembers which logical
@@ -1005,25 +1017,56 @@ def lower_sim(
             _check_device(x, device)
             set_reg("x", to_mesh(x), None)
         tracer = obs_tracing.get_tracer() if traced else obs_tracing.NOOP
+        injector = runtime_chaos.get_injector() if traced else None
+        if injector is not None and device.type == "cuda" \
+                and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "a chaos scope cannot run inside a CUDA graph capture: the "
+                "graph would replay one run's fault decisions"
+            )
+
+        def lossy(b, level):
+            # innermost wrapper: link-probed single-pair permutes and
+            # traced rounds both see per-message chaos decisions
+            if injector is None:
+                return b
+            return runtime_chaos.ChaosBackend(b, injector, level=level)
+
         for ph in plan.phases:
             if not tracer.enabled:
-                run_phase(ph, None)
+                run_phase(
+                    ph,
+                    None if injector is None
+                    else (lambda b, lv=ph.level: lossy(b, lv)),
+                )
                 continue
             name = ph.kind.name
+
+            def wrap(b, lv=ph.level, name=name):
+                plain, b = b, lossy(b, lv)
+                if getattr(tracer, "link_probe", False):
+                    # per-link attribution: each round's permute split
+                    # into individually timed (src, dst) messages (an
+                    # exact merge), child spans of the round span
+                    b = obs_health.LinkProbeBackend(
+                        b, tracer, level=lv,
+                        injector=getattr(tracer, "link_injector", None),
+                        detector=getattr(tracer, "link_detector", None),
+                        plain=plain,
+                    )
+                return obs_tracing.TracingBackend(
+                    b, tracer, phase=f"{name}:L{lv}",
+                    on_round=lambda idx, dur_us: obs_metrics.observe_round(
+                        coll_name, name, idx, dur_us
+                    ),
+                )
+
             t0 = obs_tracing.now_us()
             with tracer.span(
                 f"plan.phase:{name}:L{ph.level}", "phase", kind=name,
                 level=ph.level, algorithm=ph.algorithm, coll=coll_name,
             ) as span:
-                out, backend = run_phase(
-                    ph,
-                    lambda b: obs_tracing.TracingBackend(
-                        b, tracer, phase=f"{name}:L{ph.level}",
-                        on_round=lambda idx, dur_us: obs_metrics.observe_round(
-                            coll_name, name, idx, dur_us
-                        ),
-                    ),
-                )
+                out, backend = run_phase(ph, wrap)
                 obs_tracing._block(out)
                 if backend is not None:
                     span.set(rounds=backend.rounds)

@@ -34,7 +34,16 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                 "repro_torch.offload.tuner",
                 "repro_torch.offload.profiling",
                 "repro_torch.testing.obs_check",
-                "repro_torch.testing.fusion_check"):
+                "repro_torch.testing.fusion_check",
+                "repro_torch.runtime", "repro_torch.runtime.chaos",
+                "repro_torch.runtime.fault", "repro_torch.runtime.straggler",
+                "repro_torch.offload.reliability", "repro_torch.obs.health",
+                "repro_torch.obs.dashboard", "repro_torch.service",
+                "repro_torch.service.broker", "repro_torch.service.telemetry",
+                "repro_torch.service.registry",
+                "repro_torch.testing.chaos_check",
+                "repro_torch.testing.service_check",
+                "repro_torch.testing.health_check"):
         assert mod in mods
     code = (
         "import importlib, sys\n"
