@@ -29,7 +29,29 @@ non-zero without printing a result:
               views off the vector alignment, broadcast h0, the exact
               a = b = 1 case at T = 4096 (bitwise), 20 back-to-back calls
               and calls on two streams, launches by path held to the plan.
-4. main     — the offload path: ``OffloadEngine()`` (on the GPU by default)
+4. serve    — the model substrate and the serving path
+              (``repro_torch.models``, ``repro_torch.serving``): Mamba2-130m
+              at full width in float32, ``lm_prefill`` at (2, 256) on the
+              card (K3 under every Mamba layer: exactly 24 launches, read
+              right before and after) against the same module on the CPU
+              (the plain scan), logits and final SSD states to 1e-3 of the
+              largest magnitude; Mamba2-130m and SmolLM-360M at full width in
+              bf16 through ``ServeEngine(batch_size=4, max_len=256)``, 8
+              requests of 4-23-token prompts (``default_rng(0)``, as
+              ``launch/serve.py`` draws them) and 16 new tokens until
+              drained, every kernel count zeroed right before and read right
+              after (K3: 24 a prefill, none a decode step), with served
+              tokens/s, prefill ms a request and the median CUDA-event
+              decode step; the moe, hybrid, vlm and audio families
+              reduced, one ``lm_forward`` and a prefill-then-decode on the
+              card against the CPU in float32 to 1e-4; a reduced
+              Mamba2-130m served as a tenant of the card's
+              ``DescriptorBroker`` (its per-step ALLREDUCE through K1):
+              ``collect_service_stats()`` equal to the host's count, K1's
+              launches rising. Its profiler readings come at the end of
+              ``times``. Every line carries the card's name and power
+              limit.
+5. main     — the offload path: ``OffloadEngine()`` (on the GPU by default)
               -> ``make_descriptor(..., backend="pallas", chunks=1)`` ->
               ``offload`` for SCAN, EXSCAN, ALLREDUCE and BARRIER at p = 8 and
               16 over the osu_scan message sizes (4 B - 1 MiB per rank) plus a
@@ -37,7 +59,7 @@ non-zero without printing a result:
               lowering and, on a small input, against numpy. K1's launch
               counts (in all and by path) are zeroed right before and read
               right after: every launch on the register path.
-5. service  — the multi-tenant broker (``DescriptorBroker`` over
+6. service  — the multi-tenant broker (``DescriptorBroker`` over
               ``OffloadEngine()``, its flush thread on the card): 1, 8 and
               64 client threads stream SCAN, EXSCAN and ALLREDUCE at axes
               (1, 8) through K1 (``backend="pallas"``, ``chunks=1``),
@@ -54,7 +76,7 @@ non-zero without printing a result:
               with it on; writing into one ticket's result leaves the
               others alone. Prints requests/s, client p50/p99 latency, the
               coalesce factor and K1 launches per request.
-6. reliability — ``repro_torch.testing.chaos_check`` on the card at (2, 4)
+7. reliability — ``repro_torch.testing.chaos_check`` on the card at (2, 4)
               and at (1, 8), on the default backend as the reference runs
               it: all five CollTypes bitwise through seeded 5% drop +
               corrupt chaos (retries), a poisoned payload quarantined by
@@ -68,13 +90,13 @@ non-zero without printing a result:
               declines the two-axis plan, and at (1, 8) through K1, every
               dispatch counted on K1), and ``payload_checksum`` at 16 KiB
               and 8 MiB.
-7. health   — ``repro_torch.testing.health_check`` at (2, 4) on the card
+8. health   — ``repro_torch.testing.health_check`` at (2, 4) on the card
               (a link-probed traced dispatch with one link slowed: the
               detector names that link and no other; sim, driver-mode and
               probed results bitwise; a deadline-miss SLO alert; the flight
               recorder's dump); ``HealthMonitor.ingest`` of a broker's and
               its engine's telemetry and ``render_dashboard`` of both.
-8. entry    — the on-chip entry points at full width: Mamba2-130m's segment
+9. entry    — the on-chip entry points at full width: Mamba2-130m's segment
               scan, OLMoE's expert offsets, memory-bound (8192, 8192) scans,
               Mamba2-130m's SSD recurrence, SmolLM-360M and Gemma3-27B
               attention and a decode step. The launch counts of K3, K4 (also
@@ -82,7 +104,7 @@ non-zero without printing a result:
               (one a call for K3 and K4; for K5 the launches its C entry
               reports, held to ``plan_launch``'s count); each result is held
               against its plain version.
-9. spmd     — the per-rank path: K2 (the per-rank collective kernel)
+10. spmd     — the per-rank path: K2 (the per-rank collective kernel)
               through ``get_backend("pallas").lower(plan, op,
               axis_names=("i",))`` under the port's ``shard_map`` on
               co-resident meshes of 8 and 16 ranks on the card (its cluster
@@ -97,12 +119,12 @@ non-zero without printing a result:
               after. Then the engine in driver mode (a mesh passed to
               ``offload``) for the five CollTypes and a planned (2, 4) SCAN,
               bitwise against sim mode.
-10. baseline — the paper's comparison (Figs. 4-5) at p = 8, float32 SUM:
+11. baseline — the paper's comparison (Figs. 4-5) at p = 8, float32 SUM:
               host-stepped ``host_scan`` (a dispatch and a sync per hop)
               against the whole schedule as one CUDA graph replay, and K1
               through the engine for hillis_steele; host_scan == sim_scan
               bitwise.
-11. tune     — the tuner on the card (``repro_torch.offload.tuner``):
+12. tune     — the tuner on the card (``repro_torch.offload.tuner``):
               ``autotune`` over p = 2-16 x 1 KiB - 1 MiB x the five colls x
               every applicable algorithm (eager, CUDA events),
               ``tune_schedule`` over (1, 8), (1, 16) and (2, 4) x
@@ -117,7 +139,7 @@ non-zero without printing a result:
               float32 MAX) and within ``scan_tolerance`` of float64 numpy
               (float32 SUM). Prints the fit, the p = 8 winners beside
               ``DEFAULT_LINK_MODEL``'s picks and the backend races.
-12. profile  — ``profile_offload`` (``torch.profiler``) of hillis_steele
+13. profile  — ``profile_offload`` (``torch.profiler``) of hillis_steele
               SCAN at p = 8 over the baseline sizes: K1 and the default
               lowering in sim mode, driver mode, the (2, 4) optimized plan
               in driver mode, and K2's per-rank lowering (``profile_call``);
@@ -129,7 +151,7 @@ non-zero without printing a result:
               ``engine.compile`` / phase span -> ``phase_round_count``
               round spans, the merged host+device trace aligned, the
               engine's series in the Prometheus text.
-13. times   — every kernel, its plain version and one PyTorch library call
+14. times   — every kernel, its plain version and one PyTorch library call
               at the main and entry shapes: device time from
               ``torch.profiler`` and the per-call time with CUDA events
               (host overhead included), beside the least time the card's
@@ -140,7 +162,13 @@ non-zero without printing a result:
               beside sim mode's; and K4's chunked path beside its column
               path (the first port's kernel), in turns, at Mamba2-130m's
               SSD shape in float32 and bf16, with the same-bytes time of
-              ``torch.add(a, b, out=h)``.
+              ``torch.add(a, b, out=h)``; then the serving path's profiler
+              readings: K3's device time in a Mamba2-130m prefill, a
+              decode step's device time and host share for Mamba2-130m and
+              SmolLM-360M, and one Mamba2-130m ``lm_forward`` at (8, 4096)
+              in bf16 with K3's device time at its (8, 16, 24, 256)
+              segment-scan shape in the model beside the same scan alone
+              and its bytes bound.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is the result object.
@@ -2837,6 +2865,562 @@ def phase_times_k4(torch, device, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The serving path: the model substrate and ServeEngine, K3 under every
+# Mamba prefill
+# ---------------------------------------------------------------------------
+
+#: the families run reduced on the card beside their CPU run, one arch each
+SERVE_REDUCED = ("olmoe-1b-7b", "jamba-v0.1-52b", "qwen2-vl-7b",
+                 "whisper-large-v3")
+SERVE_REQUESTS = 8      # requests of the full-width serving runs
+SERVE_NEW_TOKENS = 16   # new tokens a request
+SERVE_FORWARD = (8, 4096)   # (B, S) of the full-width Mamba2-130m forward
+
+
+def serve_prompts(vocab, n, high=24):
+    """Prompts as ``launch/serve.py`` draws them: ``default_rng(0)``, a
+    length of 4 to ``high - 1`` tokens, then the tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(n):
+        plen = int(rng.integers(4, high))
+        out.append(rng.integers(2, vocab, size=plen).astype(np.int32))
+    return out
+
+
+def model_batch(torch, cfg, B, S, device, seed=0):
+    """Seeded model inputs (tokens, and the stub frontends of audio / vlm),
+    made on the host so a CPU run and a card run see the same values."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.family == "audio":
+        b["frames"] = rng.normal(size=(B, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        b["vision_embeds"] = rng.normal(
+            size=(B, cfg.vision_patches, cfg.d_model)).astype(np.float32)
+        b["positions3"] = np.broadcast_to(
+            np.arange(S, dtype=np.int32)[None, :, None], (B, S, 3)).copy()
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| over max |want|, in float64 on the host."""
+    g, w = got.double().cpu(), want.double().cpu()
+    if g.shape != w.shape:
+        raise AssertionError(f"shapes {tuple(g.shape)} vs {tuple(w.shape)}")
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("non-finite output")
+    return float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+
+
+def hold(torch, got, want, rel, what) -> float:
+    err = rel_err(torch, got, want)
+    if err > rel:
+        raise AssertionError(f"{what}: max error {err:.3g} of the largest "
+                             f"magnitude, limit {rel}")
+    return err
+
+
+def profiled(torch, fn, names):
+    """One run of ``fn`` under ``torch.profiler`` (device activity only):
+    its host wall time in ms, the device time in ms of the kernels whose
+    name contains each of ``names`` and of every device activity (``"*"``),
+    and the kernels counted under each name. The device times are None when
+    the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    totals = dict.fromkeys(("*",) + tuple(names), 0.0)
+    counts = dict.fromkeys(names, 0)
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = getattr(evt, "cuda_time_total", 0.0)
+        if us <= 0:
+            continue
+        totals["*"] += us
+        for name in names:
+            if name in evt.key:
+                totals[name] += us
+                counts[name] += evt.count
+    if totals["*"] <= 0:
+        return wall_ms, None, counts
+    return wall_ms, {k: v / 1e3 for k, v in totals.items()}, counts
+
+
+class TimedServe:
+    """A ``ServeEngine`` whose prefills and decode steps are timed (host
+    clock bracketed by synchronize for a prefill, CUDA events for a decode
+    step) and whose K3 launches are read around each call."""
+
+    def __init__(self, torch, engine, k3):
+        self.torch, self.engine, self.k3 = torch, engine, k3
+        self.prefill_ms, self.decode_ms = [], []
+        self.prefill_k3, self.decode_k3 = [], []
+        api = engine.api
+        prefill, decode = api.prefill, api.decode_step
+
+        def timed_prefill(m, batch):
+            torch.cuda.synchronize()
+            before, t0 = k3.launches, time.perf_counter()
+            out = prefill(m, batch)
+            torch.cuda.synchronize()
+            self.prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            self.prefill_k3.append(k3.launches - before)
+            return out
+
+        def timed_decode(m, tok, cache, clen):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            before = k3.launches
+            start.record()
+            out = decode(m, tok, cache, clen)
+            end.record()
+            end.synchronize()
+            self.decode_ms.append(start.elapsed_time(end))
+            self.decode_k3.append(k3.launches - before)
+            return out
+
+        engine.api = dataclasses.replace(api, prefill=timed_prefill,
+                                         decode_step=timed_decode)
+
+
+def serve_full_width(torch, device, arch, smi, mods):
+    """One full-width family in bf16 through ServeEngine(batch_size=4,
+    max_len=256): 8 requests of 16 new tokens, until drained. Returns its
+    JSON line."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.sharding import Topology
+
+    cfg = get_config(arch)
+    api = build_model(cfg)
+    t0 = time.perf_counter()
+    model = api.init(torch.Generator().manual_seed(7), device=device)
+    init_s = time.perf_counter() - t0
+    mamba_layers = cfg.num_layers if cfg.family == "ssm" else 0
+
+    def engine():
+        return ServeEngine(api, model, Topology(mesh=None), batch_size=4,
+                           max_len=256, device=device)
+
+    # warm-up: cuBLAS handles, allocator pools, K3's library
+    warm = engine()
+    warm.submit(Request(rid=0, prompt=serve_prompts(cfg.vocab_size, 1)[0],
+                        max_new_tokens=3))
+    warm.run_until_drained()
+    del warm
+
+    eng = engine()
+    timed = TimedServe(torch, eng, mods["k3"])
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS)
+            for i, p in enumerate(serve_prompts(cfg.vocab_size, SERVE_REQUESTS))]
+    for r in reqs:
+        eng.submit(r)
+    for key in mods:
+        mods[key].launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {key: mods[key].launches for key in mods}
+    tokens = sum(len(r.generated) for r in reqs)
+    for r in reqs:
+        if not r.done or not (len(r.generated) == SERVE_NEW_TOKENS
+                              or r.generated[-1] == eng.eos_id):
+            raise AssertionError(f"{arch} request {r.rid}: {len(r.generated)} "
+                                 f"tokens, done={r.done}")
+        if not all(0 <= t < cfg.padded_vocab for t in r.generated):
+            raise AssertionError(f"{arch} request {r.rid}: token out of range")
+    if len(timed.prefill_ms) != len(reqs):
+        raise AssertionError(f"{arch}: {len(timed.prefill_ms)} prefills for "
+                             f"{len(reqs)} requests")
+    if any(n != mamba_layers for n in timed.prefill_k3):
+        raise AssertionError(f"{arch}: K3 launches per prefill "
+                             f"{timed.prefill_k3}, {mamba_layers} expected")
+    if any(timed.decode_k3):
+        raise AssertionError(f"{arch}: a decode step launched K3 "
+                             f"({timed.decode_k3})")
+    if launches["k3"] != mamba_layers * len(reqs):
+        raise AssertionError(f"{arch}: K3 launched {launches['k3']} times in "
+                             f"the run, {mamba_layers} x {len(reqs)} expected")
+
+    line = {
+        "phase": "serve_model", "arch": arch, "dtype": cfg.dtype,
+        "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "batch_size": 4, "max_len": 256, "requests": len(reqs),
+        "prompt_tokens": [len(r.prompt) for r in reqs],
+        "tokens": tokens, "decode_steps": len(timed.decode_ms),
+        "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
+        "prefill_ms_per_request": statistics.mean(timed.prefill_ms),
+        "prefill_ms": timed.prefill_ms,
+        "decode_step_ms_median": statistics.median(timed.decode_ms),
+        "decode_step_ms_min": min(timed.decode_ms),
+        "k3_launches_per_prefill": timed.prefill_k3[0],
+        "k3_launches_per_decode_step": max(timed.decode_k3),
+        "launches": launches,
+        "init_s": init_s, "card": smi,
+    }
+    del eng, model
+    torch.cuda.empty_cache()
+    emit(line)
+    return line
+
+
+def times_serve_model(torch, device, arch, smi):
+    """The profiler readings of one full-width family in bf16: one prefill
+    (K3's device time in it, one launch a Mamba layer) and 8 decode steps
+    of a full ``ServeEngine(4, 256)`` (a decode step's device-busy time
+    and its host share, 1 - device / wall)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.sharding import Topology
+
+    cfg = get_config(arch)
+    api = build_model(cfg)
+    model = api.init(torch.Generator().manual_seed(7), device=device)
+    prompts = serve_prompts(cfg.vocab_size, 4)
+    eng = ServeEngine(api, model, Topology(mesh=None), batch_size=4,
+                      max_len=256, device=device)
+    for p in prompts:
+        eng.submit(Request(rid=0, prompt=p, max_new_tokens=64))
+    eng._admit()
+    eng.step()                                   # warm-up
+    prompt = torch.as_tensor(prompts[0], device=device)[None]
+    with torch.inference_mode():
+        api.prefill(model, {"tokens": prompt})   # warm-up
+        _, pf, pf_counts = profiled(
+            torch, lambda: api.prefill(model, {"tokens": prompt}),
+            ("k3_scan_kernel",))
+
+    def decode_steps():
+        for _ in range(8):
+            eng.step()
+
+    dec_wall, dec, _ = profiled(torch, decode_steps, ())
+    line = {
+        "phase": "times_serve_model", "arch": arch, "dtype": cfg.dtype,
+        "prompt_tokens": len(prompts[0]),
+        "prefill_device_ms": None if pf is None else pf["*"],
+        "decode_profiled_ms_per_step": dec_wall / 8,
+        "decode_device_ms_per_step": None if dec is None else dec["*"] / 8,
+        "decode_host_share": None if dec is None else 1.0 - dec["*"] / dec_wall,
+        "card": smi,
+    }
+    if cfg.family == "ssm":
+        line["k3_device_ms_per_prefill"] = None if pf is None else pf["k3_scan_kernel"]
+        line["k3_launches_profiled"] = pf_counts["k3_scan_kernel"]
+    del eng, model
+    torch.cuda.empty_cache()
+    emit(line)
+    return line
+
+
+def serve_parity(torch, device, smi, mods):
+    """Mamba2-130m at full width in float32: lm_prefill at (2, 256) on the
+    card (K3, 24 launches) against the same module on the CPU (the plain
+    scan): the prefill's logits and its final SSD states and conv tails to
+    1e-3 of the largest magnitude.
+
+    Also reported, not held: every position's logits of ``lm_forward``,
+    with K3 and with the segment scan summed in float64 on the card. 24
+    layers of random weights amplify float32 rounding: the two differ from
+    the CPU's by about the same amount, so the scan is not what sets it."""
+    import copy
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import mamba as M
+    from repro_torch.models import transformer as T
+
+    cfg = dc.replace(get_config("mamba2-130m"), dtype="float32")
+    api = build_model(cfg)
+    cpu_model = api.init(torch.Generator().manual_seed(20), device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(device)
+    batch = model_batch(torch, cfg, 2, 256, "cpu", seed=20)
+    card_batch = {k: v.to(device) for k, v in batch.items()}
+    k3 = mods["k3"]
+
+    def f64_scan(dAc):
+        seg = torch.cumsum(torch.movedim(dAc, 2, 3).double(), -1).float()
+        return torch.movedim(seg, 3, 2)
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        before = k3.launches
+        last, cache = api.prefill(card_model, card_batch)
+        torch.cuda.synchronize()
+        launched = k3.launches - before
+        if launched != cfg.num_layers:
+            raise AssertionError(f"full-width prefill launched K3 {launched} "
+                                 f"times, {cfg.num_layers} layers")
+        logits, _ = T.lm_forward(card_model, card_batch["tokens"], cfg)
+        segment_scan, M._segment_scan = M._segment_scan, f64_scan
+        try:
+            logits_f64, _ = T.lm_forward(card_model, card_batch["tokens"], cfg)
+        finally:
+            M._segment_scan = segment_scan
+        cpu_last, cpu_cache = api.prefill(cpu_model, batch)
+        cpu_logits, _ = T.lm_forward(cpu_model, batch["tokens"], cfg)
+    err = {
+        "last_logits": hold(torch, last, cpu_last, 1e-3, "prefill last logits"),
+        "ssm_state": hold(torch, cache["mamba"]["ssm"], cpu_cache["mamba"]["ssm"],
+                          1e-3, "final SSD states"),
+        "conv_x": hold(torch, cache["mamba"]["conv_x"],
+                       cpu_cache["mamba"]["conv_x"], 1e-3, "conv tails"),
+        "conv_bc": hold(torch, cache["mamba"]["conv_bc"],
+                        cpu_cache["mamba"]["conv_bc"], 1e-3, "conv tails"),
+    }
+    reported = {
+        "forward_logits": rel_err(torch, logits, cpu_logits),
+        "forward_logits_f64_scan": rel_err(torch, logits_f64, cpu_logits),
+    }
+    line = {"phase": "serve_parity", "arch": cfg.name, "dtype": "float32",
+            "shape": [2, 256], "k3_launches": launched, "rel_err": err,
+            "tolerance": 1e-3, "reported_rel_err": reported, "card": smi,
+            "ok": True}
+    emit(line)
+    del card_model, cpu_model
+    torch.cuda.empty_cache()
+    return line
+
+
+def serve_reduced(torch, device, smi, mods):
+    """Every other family, reduced, float32: one lm_forward and a
+    prefill-then-decode on the card against the same module on the CPU,
+    to 1e-4 of the largest logit (decode: the same next tokens and caches)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.trees import tree_leaves, tree_map
+    from repro_torch.models import build_model
+
+    rows = []
+    for arch in SERVE_REDUCED:
+        cfg = get_config(arch).reduced()
+        api = build_model(cfg)
+        cpu_model = api.init(torch.Generator().manual_seed(21), device="cpu")
+        card_model = copy.deepcopy(cpu_model).to(device)
+        B, S = 2, 32
+        batch = model_batch(torch, cfg, B, S, "cpu", seed=21)
+        card_batch = {k: v.to(device) for k, v in batch.items()}
+        mamba_layers = (cfg.num_layers - cfg.num_layers // (cfg.attn_every or 8)
+                        if cfg.family == "hybrid" else 0)
+        err = {}
+        with torch.inference_mode():
+            out = api.forward(card_model, card_batch)
+            want = api.forward(cpu_model, batch)
+            out = out[0] if isinstance(out, tuple) else out
+            want = want[0] if isinstance(want, tuple) else want
+            err["logits"] = hold(torch, out, want, 1e-4, f"{arch} forward")
+            before = mods["k3"].launches
+            last, cache = api.prefill(card_model, card_batch)
+            torch.cuda.synchronize()
+            if mods["k3"].launches - before != mamba_layers:
+                raise AssertionError(f"{arch} prefill: K3 launched "
+                                     f"{mods['k3'].launches - before} times, "
+                                     f"{mamba_layers} Mamba layers")
+            cpu_last, cpu_cache = api.prefill(cpu_model, batch)
+            err["prefill_logits"] = hold(torch, last, cpu_last, 1e-4, f"{arch} prefill")
+
+            def placed(cache, dev):
+                full = api.init_cache(B, S + 8, device=dev)
+                def place(dst, src):
+                    pads = []
+                    for d, s in reversed(list(zip(dst.shape, src.shape))):
+                        pads += [0, d - s]
+                    return torch.nn.functional.pad(src.to(dst.dtype), pads)
+                return tree_map(place, full, cache)
+
+            tok = torch.argmax(cpu_last[:, -1:], -1).to(torch.int32)
+            nxt, new = api.decode_step(card_model, tok.to(device),
+                                       placed(cache, device), S)
+            cpu_nxt, cpu_new = api.decode_step(cpu_model, tok,
+                                               placed(cpu_cache, "cpu"), S)
+            if not torch.equal(nxt.cpu(), cpu_nxt):
+                raise AssertionError(f"{arch} decode: next tokens "
+                                     f"{nxt.flatten().tolist()} vs "
+                                     f"{cpu_nxt.flatten().tolist()}")
+            worst = 0.0
+            for g, w in zip(tree_leaves(new), tree_leaves(cpu_new)):
+                worst = max(worst, hold(torch, g, w, 1e-4, f"{arch} decode cache"))
+            err["decode_cache"] = worst
+        rows.append({"arch": arch, "family": cfg.family, "rel_err": err,
+                     "k3_launches_per_prefill": mamba_layers})
+        del card_model, cpu_model
+    emit({"phase": "serve_reduced", "runs": rows, "tolerance": 1e-4,
+          "card": smi, "ok": True})
+    return rows
+
+
+def serve_tenancy(torch, device, smi, mods):
+    """Reduced Mamba2-130m served with a collective_client on the card's
+    DescriptorBroker: each step's slot statistics are an ALLREDUCE the
+    broker dispatches through K1; collect_service_stats() must equal the
+    totals counted on the host, and K1's launches must rise."""
+    from repro_torch import OffloadEngine
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.service import DescriptorBroker
+    from repro_torch.sharding import Topology
+
+    cfg = get_config("mamba2-130m").reduced()
+    api = build_model(cfg)
+    model = api.init(torch.Generator().manual_seed(22), device=device)
+    k1 = mods["k1"]
+    with DescriptorBroker(OffloadEngine()) as broker:
+        client = broker.client("serve")
+        eng = ServeEngine(api, model, Topology(mesh=None), batch_size=4,
+                          max_len=64, collective_client=client, device=device)
+        # prompts no longer than the reduced chunk of 16
+        for i, p in enumerate(serve_prompts(cfg.vocab_size, SERVE_REQUESTS, high=17)):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=4 + i % 5))
+        host = {"service_steps": 0, "slot_steps": 0, "tokens_emitted": 0,
+                "requests_finished": 0}
+        before = k1.launches
+        while eng.queue or any(s is not None for s in eng.slots):
+            eng._admit()
+            active = [s for s in range(eng.B) if eng.slots[s] is not None]
+            eng.step()
+            host["service_steps"] += 1
+            host["slot_steps"] += len(active)
+            host["tokens_emitted"] += len(active)
+            host["requests_finished"] += sum(eng.slots[s] is None for s in active)
+        got = eng.collect_service_stats()
+        torch.cuda.synchronize()
+        launched = k1.launches - before
+        snap = broker.engine.telemetry.snapshot()
+    if got != host:
+        raise AssertionError(f"tenancy totals {got}, counted on the host {host}")
+    if launched < 1:
+        raise AssertionError("the tenancy run launched no K1")
+    if snap["backend_fallbacks"]:
+        raise AssertionError(f"fallbacks: {snap['backend_fallback_reasons']}")
+    line = {"phase": "serve_tenancy", "arch": cfg.name, "totals": got,
+            "k1_launches": launched, "dispatches": snap["dispatches"],
+            "card": smi, "ok": True}
+    emit(line)
+    return line
+
+
+def times_serve_forward(torch, device, smi, mods):
+    """One Mamba2-130m lm_forward at (8, 4096) in bf16 under the profiler:
+    K3's device time at its (8, 16, 24, 256) segment-scan shape inside the
+    model, beside the same scan alone on a tensor of that shape (the entry
+    phase's input) and its bytes bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    cfg = get_config("mamba2-130m")
+    api = build_model(cfg)
+    model = api.init(torch.Generator().manual_seed(23), device=device)
+    B, S = SERVE_FORWARD
+    tokens = model_batch(torch, cfg, B, S, device, seed=23)["tokens"]
+    k3 = mods["k3"]
+
+    def forward():
+        with torch.inference_mode():
+            return api.forward(model, {"tokens": tokens})[0]
+
+    logits = forward()                       # warm-up, and the output check
+    torch.cuda.synchronize()
+    if logits.shape != (B, S, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"forward: {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    del logits
+    before = k3.launches
+    wall_ms, dev, counts = profiled(torch, forward, ("k3_scan_kernel",))
+    if k3.launches - before != cfg.num_layers or counts["k3_scan_kernel"] not in (
+            0, cfg.num_layers):
+        raise AssertionError(f"forward: K3 launched {k3.launches - before} "
+                             f"times, {counts['k3_scan_kernel']} profiled")
+    # the entry phase's input for this shape: the same scan alone, 20 calls
+    # in one profile
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    seg = -0.1 * torch.rand((8, 16, 24, 256), generator=gen, device=device)
+
+    def scans():
+        for _ in range(20):
+            ops.prefix_scan(seg)
+
+    scans()
+    _, alone_dev, alone_counts = profiled(torch, scans, ("k3_scan_kernel",))
+    alone = (None if alone_dev is None or not alone_counts["k3_scan_kernel"]
+             else alone_dev["k3_scan_kernel"] / alone_counts["k3_scan_kernel"])
+    line = {
+        "phase": "times_serve_forward", "arch": cfg.name, "dtype": cfg.dtype,
+        "shape": [B, S], "wall_ms": wall_ms,
+        "device_ms": None if dev is None else dev["*"],
+        "host_share": None if dev is None else 1.0 - dev["*"] / wall_ms,
+        "k3_launches": cfg.num_layers,
+        "k3_ms_per_launch_in_model": (None if dev is None
+                                      else dev["k3_scan_kernel"] / cfg.num_layers),
+        "k3_ms_alone": alone, "k3_shape": [8, 16, 24, 256],
+        # read once, written once, at the card's memory rate
+        "k3_bound_ms": 2 * seg.numel() * seg.element_size()
+        / mem_bandwidth(torch.cuda.get_device_name(0)) * 1e3,
+        "card": smi,
+    }
+    del model
+    torch.cuda.empty_cache()
+    emit(line)
+    return line
+
+
+def phase_serve(torch, device, smi):
+    """The model substrate and the serving path on the card (see the
+    module docstring, phase 4); its profiler readings come later, in
+    :func:`phase_times_serve`."""
+    mods = kernel_modules()
+    t0 = time.perf_counter()
+    parity = serve_parity(torch, device, smi, mods)
+    full = [serve_full_width(torch, device, arch, smi, mods)
+            for arch in ("mamba2-130m", "smollm-360m")]
+    serve_reduced(torch, device, smi, mods)
+    tenancy = serve_tenancy(torch, device, smi, mods)
+    keys = ("tokens_per_s", "prefill_ms_per_request", "decode_step_ms_median",
+            "k3_launches_per_prefill", "k3_launches_per_decode_step")
+    emit({"phase": "serve", "seconds": time.perf_counter() - t0,
+          "parity_rel_err": parity["rel_err"],
+          "models": {row["arch"]: {k: row.get(k) for k in keys} for row in full},
+          "tenancy": tenancy["totals"], "k1_launches": tenancy["k1_launches"],
+          "card": smi, "ok": True})
+    return {"parity": parity, "full": full, "tenancy": tenancy}
+
+
+def phase_times_serve(torch, device, smi):
+    """The serving path's profiler readings, taken after the ``profile``
+    phase as every other profiler reading of this script is (a profiler
+    session before ``profile`` left ``profile_offload`` without device
+    events): K3's device time a Mamba2-130m prefill, a decode step's host
+    share for both full-width models, and the (8, 4096) forward."""
+    mods = kernel_modules()
+    rows = [times_serve_model(torch, device, arch, smi)
+            for arch in ("mamba2-130m", "smollm-360m")]
+    forward = times_serve_forward(torch, device, smi, mods)
+    return rows, forward
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2853,6 +3437,7 @@ def main() -> int:
     card, smi = phase_device(torch)
     phase_kernel(torch, device)
     phase_onchip(torch, device)
+    serve = phase_serve(torch, device, smi)
     launches = phase_main(torch, device)
     phase_service(torch, device)
     phase_reliability(torch, device)
@@ -2866,6 +3451,11 @@ def main() -> int:
     k2 = phase_times_spmd(torch, device, card, spmd_launches)
     onchip = phase_times_onchip(torch, card, entry_launches, cases)
     phase_times_k4(torch, device, card)
+    phase_times_serve(torch, device, smi)
+    # the serving path's launches beside each kernel's own path: K3 under
+    # every Mamba2-130m prefill, K1 under the serving tenancy
+    onchip[0]["serve_launches"] = serve["full"][0]["launches"]["k3"]
+    k1["serve_launches"] = serve["tenancy"]["k1_launches"]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     emit({"kernels": [k1, k2, *onchip]})
     print(smi, flush=True)

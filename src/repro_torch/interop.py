@@ -1,11 +1,16 @@
 """State that crosses between the JAX reference and the PyTorch port.
 
-The system has no weights. What crosses is
+What crosses is
 
 * descriptor words, which :class:`repro_torch.core.packet.
   CollectiveDescriptor.decode` reads directly (the wire format is shared);
 * payload pytrees: single arrays, the SSD ``(a, b)`` and the flash
-  ``(m, l, o)`` tuples, as numpy arrays on one side and tensors on the other.
+  ``(m, l, o)`` tuples, as numpy arrays on one side and tensors on the other;
+* model weights: the reference's ``init_lm`` / ``init_encdec`` pytree as
+  numpy arrays, loaded into the port's module by
+  :func:`model_params_from_numpy`. The models run from seeded random
+  initialisation; carrying one package's weights into the other is how the
+  parity tests hold the two to the same function.
 
 bfloat16 has no numpy dtype of its own; on the numpy side it is the
 ``ml_dtypes`` bfloat16 the JAX package uses, carried across bit for bit.
@@ -13,7 +18,7 @@ bfloat16 has no numpy dtype of its own; on the numpy side it is the
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -49,3 +54,67 @@ def payload_from_numpy(tree: PyTree, device: "torch.device | str") -> PyTree:
 def payload_to_numpy(tree: PyTree) -> PyTree:
     """Tensor payload pytree -> numpy arrays on the host (bit for bit)."""
     return tree_map(_tensor_to_numpy, tree)
+
+
+#: reference pytree keys whose leaves stack one module per layer (or per
+#: hybrid period) along axis 0
+_STACKED = ("blocks", "periods", "enc_blocks", "dec_blocks")
+
+
+def _leaves(tree: Any, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key], path + (str(key),))
+    else:
+        yield path, tree
+
+
+def model_params_from_numpy(params_np: Any, cfg: Any,
+                            device: "torch.device | str") -> "torch.nn.Module":
+    """The port's module for ``cfg`` holding the reference's weights.
+
+    ``params_np`` is the reference's ``init_lm`` / ``init_encdec`` pytree
+    (nested dicts) with numpy leaves: stacked ``(L, ...)`` leaves under
+    ``blocks`` / ``enc_blocks`` / ``dec_blocks`` and ``(periods, ...)``
+    leaves under the hybrid family's ``periods``. Each stacked leaf is split
+    per layer onto ``blocks.<l>.<...>`` (``periods.<i>.sub_<j>.<...>``).
+    Values cross bit for bit. A leaf the module lacks, a parameter no leaf
+    fills, or a leaf whose shape or dtype differs raises ``ValueError``
+    naming its path."""
+    from repro_torch.models import build_model
+
+    module = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                   device="meta")
+    want = module.state_dict()
+    got: Dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(params_np):
+        name = "/".join(path)
+        a = np.array(leaf)  # a writable copy: the module owns its weights
+        if path[0] in _STACKED:
+            if a.ndim == 0:
+                raise ValueError(f"{name}: a stacked leaf needs a layer axis, "
+                                 f"got shape {a.shape}")
+            for i in range(a.shape[0]):
+                got[".".join((path[0], str(i)) + path[1:])] = (name, a[i])
+        else:
+            got[".".join(path)] = (name, a)
+    extra = sorted({name for key, (name, _) in got.items() if key not in want})
+    if extra:
+        raise ValueError(f"leaves the {cfg.name} module has no parameter for: "
+                         f"{extra}")
+    missing = sorted(key for key in want if key not in got)
+    if missing:
+        raise ValueError(f"parameters of the {cfg.name} module no leaf fills: "
+                         f"{missing}")
+    state = {}
+    for key, (name, a) in got.items():
+        ref = want[key]
+        t = _tensor_from_numpy(a, "cpu")
+        if tuple(t.shape) != tuple(ref.shape) or t.dtype != ref.dtype:
+            raise ValueError(
+                f"{name} (as {key}): shape {tuple(t.shape)} {t.dtype}, the "
+                f"module wants {tuple(ref.shape)} {ref.dtype}")
+        state[key] = t.to(device)
+    module.load_state_dict(state, strict=True, assign=True)
+    module.requires_grad_(False)
+    return module

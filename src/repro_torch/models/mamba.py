@@ -1,0 +1,294 @@
+"""Mamba2 (SSD) mixer (port of ``repro.models.mamba``, its local path).
+
+The chunked SSD of arXiv:2405.21060, as the reference computes it:
+
+* intra-chunk work is the matmul ("attention-like") form over (Q x Q)
+  chunk score matrices;
+* the within-chunk cumulative log-decays go through the port's
+  ``kernels.ops.prefix_scan``: K3 (``kernels/csrc/prefix_scan.cu``) on a
+  CUDA tensor, its plain version on a CPU tensor. One launch a Mamba layer
+  a forward or prefill; a decode step launches none;
+* the inter-chunk state propagation ``h' = A*h + B`` is the reference's
+  ``lax.associative_scan`` over the chunk axis, here a loop over the chunks
+  with the same operator and operand order ``comb(l, r)``.
+
+Projections are stored per segment (z, x, BC, dt), as in the reference.
+
+Only the local mixer is ported: the sequence-parallel mode (the paper's
+``dist_exscan`` with the SSD operator inside ``shard_map``) and the
+head-sharded TP mode need a mesh and raise (the next slice).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch import perf_flags
+from repro_torch.kernels.ops import prefix_scan
+from repro_torch.models.layers import const, einsum, param
+from repro_torch.sharding import require_local
+
+_CONV_WIDTH = 4
+
+
+class MambaMixer(nn.Module):
+    """``init_mamba``: the per-segment projections, the depthwise conv of
+    the x and BC segments, ``A_log`` / ``D`` / ``dt_bias`` in float32, the
+    gated norm's scale and the out projection."""
+
+    def __init__(self, gen: torch.Generator, cfg, dtype: torch.dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        di = cfg.ssm_d_inner
+        N = cfg.ssm_state
+        H = cfg.ssm_num_heads
+        s = 1.0 / math.sqrt(d)
+        self.w_z = param(gen, (d, di), s, dtype, device)
+        self.w_x = param(gen, (d, di), s, dtype, device)
+        self.w_bc = param(gen, (d, 2 * N), s, dtype, device)
+        self.w_dt = param(gen, (d, H), s, dtype, device)
+        self.conv_w_x = param(gen, (_CONV_WIDTH, di), 0.5, dtype, device)
+        self.conv_b_x = const(torch.zeros(di), dtype, device)
+        self.conv_w_bc = param(gen, (_CONV_WIDTH, 2 * N), 0.5, dtype, device)
+        self.conv_b_bc = const(torch.zeros(2 * N), dtype, device)
+        f32 = torch.float32
+        self.A_log = const(torch.log(torch.linspace(1.0, 16.0, H)), f32, device)
+        self.D = const(torch.ones(H), f32, device)
+        self.dt_bias = const(torch.full((H,), math.log(math.e - 1)), f32, device)
+        self.norm_scale = const(torch.zeros(di), dtype, device)
+        self.w_out = param(gen, (di, d), 1.0 / math.sqrt(di), dtype, device)
+
+
+def init_mamba(gen: torch.Generator, cfg, dtype: torch.dtype, device) -> MambaMixer:
+    return MambaMixer(gen, cfg, dtype, device)
+
+
+def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            halo: Optional[torch.Tensor]) -> torch.Tensor:
+    """Depthwise causal conv width 4 + silu. halo: (B, 3, C) left context."""
+    B, S, C = x.shape
+    if halo is None:
+        halo = torch.zeros((B, _CONV_WIDTH - 1, C), dtype=x.dtype, device=x.device)
+    ext = torch.cat([halo, x], dim=1)
+    out = torch.zeros_like(x)
+    for wi in range(_CONV_WIDTH):
+        out = out + ext[:, wi:wi + S] * w[wi]
+    return F.silu(out + b)
+
+
+def _gated_rmsnorm(scale: torch.Tensor, y: torch.Tensor,
+                   z: torch.Tensor) -> torch.Tensor:
+    yf = y.float() * F.silu(z.float())
+    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    return (yf * torch.rsqrt(var + 1e-6) * (1.0 + scale.float())).to(y.dtype)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _segment_scan(dAc: torch.Tensor) -> torch.Tensor:
+    """Within-chunk cumulative log decay of (B, nc, Q, H) increments,
+    through K3 along Q: (B, nc, Q, H) float32. ``ops.prefix_scan`` reshapes
+    the moved axes to (B*nc*H, Q), a copy, and the kernel's wrapper makes
+    its input contiguous: K3 is never handed a strided view."""
+    seg = prefix_scan(torch.movedim(dAc, 2, 3).float())   # (B,nc,H,Q)
+    return torch.movedim(seg, 3, 2)                        # (B,nc,Q,H)
+
+
+def _chunk_scan(A_c: torch.Tensor, S_c: torch.Tensor):
+    """Inclusive scan over the chunk axis (dim 1) under
+    ``comb((al, sl), (ar, sr)) = (ar * al, ar * sl + sr)``: the reference's
+    ``lax.associative_scan(comb, (A_c, S_c), axis=1)`` as a loop."""
+    A_inc, S_inc = [A_c[:, 0]], [S_c[:, 0]]
+    for c in range(1, A_c.shape[1]):
+        al, sl = A_inc[-1], S_inc[-1]
+        ar, sr = A_c[:, c], S_c[:, c]
+        A_inc.append(ar * al)
+        S_inc.append(ar[..., None, None] * sl + sr)
+    return torch.stack(A_inc, 1), torch.stack(S_inc, 1)
+
+
+def _ssd_chunked(
+    xs: torch.Tensor,     # (B, S, H, P) conv'd inputs
+    Bc: torch.Tensor,     # (B, S, N)
+    Cc: torch.Tensor,     # (B, S, N)
+    dA: torch.Tensor,     # (B, S, H) log-decay increments (<= 0)
+    dt: torch.Tensor,     # (B, S, H) softplus'd step sizes
+    chunk: int,
+    state_in: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+):
+    """Chunked SSD. Returns (y, (A_tot, S_tot), extras), as the reference.
+
+    The sequence must be a whole number of chunks of ``min(chunk, S)``; the
+    reference asserts so, the port raises ``ValueError``."""
+    B, S, H, Pd = xs.shape
+    N = Bc.shape[-1]
+    Q = min(chunk, S)
+    nc = S // Q
+    if S % Q != 0:
+        raise ValueError((S, Q))
+
+    xb = (xs * dt[..., None]).to(xs.dtype)           # dt-scaled inputs
+    xbc_ = xb.reshape(B, nc, Q, H, Pd)
+    Bcc = Bc.reshape(B, nc, Q, N)
+    Ccc = Cc.reshape(B, nc, Q, N)
+    dAc = dA.reshape(B, nc, Q, H)
+
+    # within-chunk cumulative log decay: K3 on the card
+    seg = _segment_scan(dAc)
+
+    scores = einsum("bcin,bcjn->bcij", Ccc, Bcc)
+    Lmat = torch.exp(
+        torch.clamp(seg[:, :, :, None, :] - seg[:, :, None, :, :], -60.0, 0.0)
+    )  # (B,c,i,j,H)
+    ii = torch.arange(Q, device=xs.device)
+    causal = (ii[:, None] >= ii[None, :]).to(scores.dtype)
+    W = scores[..., None] * Lmat * causal[None, None, :, :, None]
+    y_intra = einsum("bcijh,bcjhp->bcihp", W, xbc_)
+
+    # chunk summary states: S_c = sum_j decay_to_end_j * xb_j (x) B_j
+    decay_end = torch.exp(seg[:, :, -1:, :] - seg)   # (B,c,Q,H)
+    S_c = einsum("bcjhp,bcjn->bchpn", xbc_ * decay_end[..., None], Bcc)
+    A_c = torch.exp(seg[:, :, -1, :])                # (B,c,H)
+
+    A_inc, S_inc = _chunk_scan(A_c, S_c)
+    A_exc = torch.cat([torch.ones_like(A_inc[:, :1]), A_inc[:, :-1]], dim=1)
+    S_exc = torch.cat([torch.zeros_like(S_inc[:, :1]), S_inc[:, :-1]], dim=1)
+    if state_in is not None:
+        a_in, s_in = state_in                        # (B,H), (B,H,P,N)
+        S_exc = A_exc[..., None, None] * s_in[:, None] + S_exc
+        A_exc = A_exc * a_in[:, None]
+
+    y_inter = einsum("bcin,bchpn->bcihp", Ccc, S_exc) * torch.exp(seg)[..., None]
+    y = (y_intra + y_inter).reshape(B, S, H, Pd)
+    A_tot, S_tot = A_inc[:, -1], S_inc[:, -1]        # totals
+    if state_in is not None:
+        S_tot = A_inc[:, -1][..., None, None] * state_in[1] + S_tot
+        A_tot = A_tot * state_in[0]
+    extras = (Ccc, seg, A_exc)
+    return y, (A_tot, S_tot), extras
+
+
+def _project(p: MambaMixer, x: torch.Tensor, cfg,
+             halo_x: Optional[torch.Tensor]):
+    """proj + conv. Returns (z, xs, Bc, Cc, dtp, dA, tails). ``halo_x``
+    (B, 3, d) is the left context a sequence shard receives; None is the
+    causal zero padding."""
+    B, S, _ = x.shape
+    N, H = cfg.ssm_state, cfg.ssm_num_heads
+    Pd = cfg.ssm_head_dim
+    z = einsum("bsd,de->bse", x, p.w_z)
+    x_in = einsum("bsd,de->bse", x, p.w_x)
+    bc = einsum("bsd,de->bse", x, p.w_bc)
+    dt = einsum("bsd,de->bse", x, p.w_dt)
+
+    halo_xin = halo_bc = None
+    if halo_x is not None:
+        halo_xin = einsum("bsd,de->bse", halo_x, p.w_x)
+        halo_bc = einsum("bsd,de->bse", halo_x, p.w_bc)
+    tails = (x_in[:, -(_CONV_WIDTH - 1):], bc[:, -(_CONV_WIDTH - 1):])
+    x_in = _conv1d(x_in, p.conv_w_x, p.conv_b_x, halo_xin)
+    bc = _conv1d(bc, p.conv_w_bc, p.conv_b_bc, halo_bc)
+    xs = x_in.reshape(B, S, H, Pd)
+    Bc, Cc = bc[..., :N], bc[..., N:]
+    dtp = _softplus(dt.float() + p.dt_bias)
+    A = -torch.exp(p.A_log)
+    dA = dtp * A
+    return z, xs, Bc, Cc, dtp, dA, tails
+
+
+def _mixer_core(p: MambaMixer, x: torch.Tensor, cfg, halo_x, state_in):
+    """The reference's mixer body, its local branch (no sequence axis, no
+    head sharding)."""
+    B, S, _ = x.shape
+    di = cfg.ssm_d_inner
+    chunk = perf_flags.FLAGS.ssm_chunk or cfg.ssm_chunk
+    z, xs, Bc, Cc, dtp, dA, tails = _project(p, x, cfg, halo_x)
+    y, (A_tot, S_tot), _ = _ssd_chunked(
+        xs, Bc, Cc, dA, dtp, chunk, state_in=state_in
+    )
+    y = y + p.D[None, None, :, None].to(y.dtype) * xs.to(y.dtype)
+    y = y.reshape(B, S, di)
+    y = _gated_rmsnorm(p.norm_scale, y.to(x.dtype), z)
+    out = einsum("bse,ed->bsd", y, p.w_out).to(x.dtype)
+    cache = {
+        "ssm": S_tot.float(),
+        "conv_x": tails[0],
+        "conv_bc": tails[1],
+    }
+    return out, cache
+
+
+def mamba_mixer(
+    p: MambaMixer,
+    x: torch.Tensor,
+    cfg,
+    *,
+    seq_parallel: bool = False,
+    state_in: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence SSD mixer (train / prefill).
+
+    Returns (y, cache) where cache = {ssm, conv_x, conv_bc} is decode-ready
+    (the final SSD state and the conv-input tails). Without a mesh the
+    reference runs the local mixer whatever ``seq_parallel`` says; so does
+    the port, which serves no mesh."""
+    require_local("mamba_mixer")
+    return _mixer_core(p, x, cfg, None, state_in)
+
+
+def init_mamba_state(cfg, batch: int, dtype=torch.float32, device="cpu"):
+    H, Pd, N = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
+    return {
+        "ssm": torch.zeros((batch, H, Pd, N), dtype=dtype, device=device),
+        "conv_x": torch.zeros((batch, _CONV_WIDTH - 1, cfg.ssm_d_inner),
+                              dtype=dtype, device=device),
+        "conv_bc": torch.zeros((batch, _CONV_WIDTH - 1, 2 * N), dtype=dtype,
+                               device=device),
+    }
+
+
+def mamba_decode(
+    p: MambaMixer, x: torch.Tensor, state: Dict[str, torch.Tensor], cfg
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token SSD step. x: (B, 1, d); state: {ssm, conv_x, conv_bc}.
+    Returns new state tensors; ``state`` is left as it was."""
+    B = x.shape[0]
+    di, N, H = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads
+    Pd = cfg.ssm_head_dim
+    z = einsum("bsd,de->bse", x, p.w_z)
+    x_in = einsum("bsd,de->bse", x, p.w_x)
+    bc = einsum("bsd,de->bse", x, p.w_bc)
+    dt = einsum("bsd,de->bse", x, p.w_dt)
+
+    # concatenation promotes, as jnp's does: a float32 state makes the
+    # conv of a bf16 model run in float32
+    ext_x = torch.cat([state["conv_x"], x_in], dim=1)    # (B, W, di)
+    ext_bc = torch.cat([state["conv_bc"], bc], dim=1)
+    cx = F.silu(einsum("bwc,wc->bc", ext_x, p.conv_w_x) + p.conv_b_x)
+    cbc = F.silu(einsum("bwc,wc->bc", ext_bc, p.conv_w_bc) + p.conv_b_bc)
+
+    xs = cx.reshape(B, H, Pd)
+    Bc, Cc = cbc[..., :N], cbc[..., N:]
+    dtp = _softplus(dt[:, 0].float() + p.dt_bias)    # (B,H)
+    A = -torch.exp(p.A_log)
+    decay = torch.exp(dtp * A)                        # (B,H)
+    h = state["ssm"]
+    h = (
+        decay[..., None, None] * h
+        + (dtp[..., None] * xs.float())[..., None]
+        * Bc.float()[:, None, None, :]
+    )
+    y = torch.einsum("bhpn,bn->bhp", h, Cc.float())
+    y = y + p.D[None, :, None] * xs.float()
+    y = y.reshape(B, 1, di).to(x.dtype)
+    y = _gated_rmsnorm(p.norm_scale, y, z)
+    out = einsum("bse,ed->bsd", y, p.w_out).to(x.dtype)
+    return out, {"ssm": h, "conv_x": ext_x[:, 1:], "conv_bc": ext_bc[:, 1:]}

@@ -1,0 +1,414 @@
+"""Decoder-only LM assembly: dense / MoE / SSM / hybrid / VLM families (port
+of ``repro.models.transformer``).
+
+The reference stacks each family's layers into one pytree and runs them with
+``lax.scan``; the port keeps one module per layer in an ``nn.ModuleList``
+(``blocks``) and loops over it in Python. Heterogeneous patterns:
+
+* gemma3's 5:1 local:global attention — ``_layer_flags`` gives each layer's
+  is-global flag and ``_window_for`` its sliding-window width;
+* jamba's 1-attention-per-8 + MoE-every-2 — ``periods`` is a list of
+  ``ModuleDict``s whose ``sub_<i>`` entries are the period's sublayers.
+
+Module and parameter names are the reference's pytree keys, layer index
+inserted: the reference's ``params["blocks"]["attn"]["wq"][3]`` is the port's
+``blocks.3.attn.wq`` (:func:`repro_torch.interop.model_params_from_numpy`).
+Caches are the reference's nested dicts, stacked over layers in the same
+layout, so a cache from ``lm_prefill`` feeds ``lm_decode_step`` as in the
+reference.
+
+The reference rematerialises every layer (``jax.checkpoint`` through
+``_remat`` / ``_name_out``) for training. Without a gradient that does
+nothing, so the port leaves it out; the training slice brings it back.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.core.trees import tree_map
+from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
+from repro_torch.models.layers import einsum, param
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+class Block(nn.Module):
+    """``_init_block``: norm1 + attention or Mamba mixer, then (norm2 + MoE
+    or dense MLP) unless the config has no FFN (mamba2)."""
+
+    def __init__(self, gen: torch.Generator, cfg, kind: str, use_moe: bool,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        self.norm1 = L.Norm(cfg.d_model, cfg.norm, dtype, device)
+        self.attn = self.mamba = self.norm2 = self.moe = self.mlp = None
+        if kind == "attn":
+            self.attn = L.Attention(gen, cfg, dtype, device)
+        else:
+            self.mamba = M.MambaMixer(gen, cfg, dtype, device)
+        if use_moe:
+            self.norm2 = L.Norm(cfg.d_model, cfg.norm, dtype, device)
+            self.moe = MOE.MoE(gen, cfg, dtype, device)
+        elif cfg.d_ff > 0:
+            self.norm2 = L.Norm(cfg.d_model, cfg.norm, dtype, device)
+            self.mlp = L.MLP(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                             cfg.gated_mlp)
+
+
+class LM(nn.Module):
+    """The decoder-only LM: ``embed`` (padded vocab, d), ``final_norm``, an
+    untied ``lm_head`` (d, padded vocab), and ``blocks`` (one per layer) or,
+    for the hybrid family, ``periods``."""
+
+    def __init__(self, gen: torch.Generator, cfg, device):
+        super().__init__()
+        self.cfg = cfg
+        dtype = L.torch_dtype(cfg.dtype)
+        Vp, d = cfg.padded_vocab, cfg.d_model
+        self.embed = param(gen, (Vp, d), 0.02, dtype, device)
+        self.final_norm = L.Norm(d, cfg.norm, dtype, device)
+        self.lm_head = (None if cfg.tie_embeddings
+                        else param(gen, (d, Vp), 1.0 / math.sqrt(d), dtype, device))
+        self.blocks = self.periods = None
+        if cfg.family == "hybrid":
+            period = cfg.attn_every or 8
+            self.periods = nn.ModuleList()
+            for _ in range(cfg.num_layers // period):
+                sub = nn.ModuleDict()
+                for i in range(period):
+                    kind = "attn" if i == 0 else "mamba"
+                    use_moe = cfg.moe_num_experts > 0 and (i % cfg.moe_every == 1)
+                    sub[f"sub_{i}"] = Block(gen, cfg, kind, use_moe, dtype, device)
+                self.periods.append(sub)
+            return
+        kind = "mamba" if cfg.family == "ssm" else "attn"
+        use_moe = cfg.moe_num_experts > 0 and cfg.family in ("moe",)
+        self.blocks = nn.ModuleList(
+            Block(gen, cfg, kind, use_moe, dtype, device)
+            for _ in range(cfg.num_layers)
+        )
+
+
+def init_lm(gen: torch.Generator, cfg, device="cuda") -> LM:
+    return LM(gen, cfg, device)
+
+
+def _layer_flags(cfg) -> torch.Tensor:
+    """Per-layer is_global flags (gemma3's r local : 1 global pattern)."""
+    if cfg.local_global_ratio:
+        r = cfg.local_global_ratio
+        return torch.tensor(
+            [1 if (i % (r + 1)) == r else 0 for i in range(cfg.num_layers)],
+            dtype=torch.int32,
+        )
+    return torch.zeros((cfg.num_layers,), dtype=torch.int32)
+
+
+def _window_for(cfg, is_global) -> int:
+    if cfg.local_global_ratio:
+        return 0 if int(is_global) > 0 else cfg.sliding_window
+    return cfg.sliding_window
+
+
+def _sub_keys(period: nn.ModuleDict):
+    return sorted(period.keys(), key=lambda s: int(s.split("_")[1]))
+
+
+def _stack(trees):
+    """Stack same-structured cache trees along a new leading axis."""
+    return tree_map(lambda *a: torch.stack(a, 0), *trees)
+
+
+def _zero(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# blocks (forward)
+# ---------------------------------------------------------------------------
+
+
+def _ffn(p: Block, x: torch.Tensor, cfg):
+    if p.moe is not None:
+        y, aux = MOE.moe_block(p.moe, x, cfg, act=cfg.act)
+        return y, aux["load_balance"], aux["router_z"]
+    return L.mlp_block(p.mlp, x, cfg.act), _zero(x.device), _zero(x.device)
+
+
+def _maybe_ffn(p: Block, x: torch.Tensor, cfg):
+    """Norm + FFN residual, skipped entirely for FFN-less blocks (mamba2)."""
+    if p.moe is None and p.mlp is None:
+        return x, _zero(x.device), _zero(x.device)
+    h = L.norm(p.norm2, x, cfg.norm)
+    f, lb, z = _ffn(p, h, cfg)
+    return x + f, lb, z
+
+
+def _attn_block_fwd(p, x, positions, cfg, window, positions3=None,
+                    causal=True, collect=False):
+    h = L.norm(p.norm1, x, cfg.norm)
+    a = L.attention_block(
+        p.attn, h, positions, cfg,
+        causal=causal, window=window, positions3=positions3,
+        return_kv=collect,
+    )
+    kv = None
+    if collect:
+        a, kv = a
+    x = x + a
+    x, lb, z = _maybe_ffn(p, x, cfg)
+    return x, lb, z, kv
+
+
+def _mamba_block_fwd(p, x, cfg, seq_parallel):
+    h = L.norm(p.norm1, x, cfg.norm)
+    a, cache = M.mamba_mixer(p.mamba, h, cfg, seq_parallel=seq_parallel)
+    x = x + a
+    x, lb, z = _maybe_ffn(p, x, cfg)
+    return x, lb, z, cache
+
+
+def _logits(model: LM, x: torch.Tensor, cfg) -> torch.Tensor:
+    x = L.norm(model.final_norm, x, cfg.norm)
+    head = model.lm_head if model.lm_head is not None else model.embed.T
+    return einsum("bsd,dv->bsv", x, head)
+
+
+# ---------------------------------------------------------------------------
+# full forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def lm_forward(
+    model: LM,
+    tokens: torch.Tensor,
+    cfg,
+    *,
+    vision_embeds: Optional[torch.Tensor] = None,
+    positions3: Optional[torch.Tensor] = None,
+    collect_cache: bool = False,
+):
+    """tokens (B, S) -> logits (B, S, Vp). Returns (logits, aux), and the
+    stacked caches with ``collect_cache``."""
+    B, S = tokens.shape
+    x = model.embed[tokens]
+    if vision_embeds is not None:
+        nv = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    lb_sum = _zero(x.device)
+    z_sum = _zero(x.device)
+
+    seq_par = cfg.family == "ssm"  # mamba2: sequence-parallel SSD on a mesh
+
+    caches = None
+    if cfg.family == "hybrid":
+        per_period = []
+        for pp in model.periods:
+            kv = None
+            mcaches = []
+            for i, sk in enumerate(_sub_keys(pp)):
+                p = pp[sk]
+                if i == 0:
+                    x, lb, z, kv = _attn_block_fwd(
+                        p, x, positions, cfg, cfg.sliding_window,
+                        collect=collect_cache,
+                    )
+                else:
+                    x, lb, z, mc = _mamba_block_fwd(p, x, cfg, False)
+                    mcaches.append(mc)
+                lb_sum, z_sum = lb_sum + lb, z_sum + z
+            if collect_cache:
+                per_period.append(
+                    {"k": kv[0], "v": kv[1], "mamba": _stack(mcaches)})
+        if collect_cache:
+            caches = _stack(per_period)
+    else:
+        flags = _layer_flags(cfg)
+        per_layer = []
+        for p, flag in zip(model.blocks, flags.tolist()):
+            if cfg.family == "ssm":
+                x, lb, z, mc = _mamba_block_fwd(p, x, cfg, seq_par)
+                cache = {"mamba": mc}
+            else:
+                window = _window_for(cfg, flag)
+                x, lb, z, kv = _attn_block_fwd(
+                    p, x, positions, cfg, window, positions3=positions3,
+                    collect=collect_cache,
+                )
+                cache = {"k": kv[0], "v": kv[1]} if collect_cache else None
+            lb_sum, z_sum = lb_sum + lb, z_sum + z
+            per_layer.append(cache)
+        if collect_cache:
+            caches = _stack(per_layer)
+
+    logits = _logits(model, x, cfg)
+    aux = {"load_balance": lb_sum, "router_z": z_sum}
+    if collect_cache:
+        return logits, aux, caches
+    return logits, aux
+
+
+def lm_loss(model: LM, batch, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: {tokens (B,S), labels (B,S), [vision_embeds, positions3]}.
+    The forward value only (no gradient is taken in this port yet)."""
+    logits, aux = lm_forward(
+        model,
+        batch["tokens"],
+        cfg,
+        vision_embeds=batch.get("vision_embeds"),
+        positions3=batch.get("positions3"),
+    )
+    labels = batch["labels"]
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long().clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    xent = torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
+    loss = xent + 0.01 * aux["load_balance"] + 0.001 * aux["router_z"]
+    metrics = {"xent": xent, **aux}
+    return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# decode (serve_step)
+# ---------------------------------------------------------------------------
+
+
+def init_decode_cache(cfg, batch: int, seq_len: int, topo=None,
+                      device="cuda") -> Params:
+    """KV / SSM caches for one-token decode against a seq_len context."""
+    dt = L.torch_dtype(cfg.dtype)
+    hd = cfg.resolved_head_dim
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if cfg.family == "ssm":
+        state = M.init_mamba_state(cfg, batch, device=device)
+        return {"mamba": tree_map(
+            lambda a: zeros(cfg.num_layers, *a.shape, dtype=a.dtype), state)}
+    if cfg.family == "hybrid":
+        period = cfg.attn_every or 8
+        n_p = cfg.num_layers // period
+        state = M.init_mamba_state(cfg, batch, device=device)
+        return {
+            "k": zeros(n_p, batch, seq_len, cfg.num_kv_heads, hd),
+            "v": zeros(n_p, batch, seq_len, cfg.num_kv_heads, hd),
+            "mamba": tree_map(
+                lambda a: zeros(n_p, period - 1, *a.shape, dtype=a.dtype), state),
+        }
+    Lnum = cfg.num_layers
+    cache = {
+        "k": zeros(Lnum, batch, seq_len, cfg.num_kv_heads, hd),
+        "v": zeros(Lnum, batch, seq_len, cfg.num_kv_heads, hd),
+    }
+    if cfg.encoder_layers:
+        cache["xk"] = zeros(Lnum, batch, cfg.encoder_frames, cfg.num_kv_heads, hd)
+        cache["xv"] = zeros(Lnum, batch, cfg.encoder_frames, cfg.num_kv_heads, hd)
+    return cache
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """Argmax of the last position over the padded vocabulary (first
+    maximum, as ``jnp.argmax``): (B, 1) int32."""
+    return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+
+
+def lm_decode_step(
+    model: LM,
+    token: torch.Tensor,       # (B, 1) int32
+    cache: Params,
+    cache_len: int,            # current context length
+    cfg,
+) -> Tuple[torch.Tensor, Params]:
+    """One greedy decode step. Returns (next_token (B,1), new_cache); the
+    cache handed in is left as it was."""
+    kv_mode = L.decode_kv_mode(cfg)
+    cache_len = int(cache_len)
+    x = model.embed[token]
+
+    if cfg.family == "ssm":
+        states = []
+        for li, p in enumerate(model.blocks):
+            st = tree_map(lambda a, li=li: a[li], cache["mamba"])
+            h = L.norm(p.norm1, x, cfg.norm)
+            a, st = M.mamba_decode(p.mamba, h, st, cfg)
+            x = x + a
+            x, _, _ = _maybe_ffn(p, x, cfg)
+            states.append(st)
+        new_cache = {"mamba": _stack(states)}
+    elif cfg.family == "hybrid":
+        nks, nvs, nms = [], [], []
+        for pi, pp in enumerate(model.periods):
+            kc, vc = cache["k"][pi], cache["v"][pi]
+            mstates = tree_map(lambda a, pi=pi: a[pi], cache["mamba"])
+            new_m = []
+            for i, sk in enumerate(_sub_keys(pp)):
+                p = pp[sk]
+                h = L.norm(p.norm1, x, cfg.norm)
+                if i == 0:
+                    a, kc, vc = L.cached_attention(
+                        p.attn, h, kc, vc, cache_len, cfg, kv_mode=kv_mode
+                    )
+                else:
+                    st = tree_map(lambda a, i=i: a[i - 1], mstates)
+                    a, st = M.mamba_decode(p.mamba, h, st, cfg)
+                    new_m.append(st)
+                x = x + a
+                x, _, _ = _maybe_ffn(p, x, cfg)
+            nks.append(kc)
+            nvs.append(vc)
+            nms.append(_stack(new_m))
+        new_cache = {"k": torch.stack(nks, 0), "v": torch.stack(nvs, 0),
+                     "mamba": _stack(nms)}
+    else:
+        flags = _layer_flags(cfg)
+        nks, nvs = [], []
+        for li, (p, flag) in enumerate(zip(model.blocks, flags.tolist())):
+            h = L.norm(p.norm1, x, cfg.norm)
+            window = _window_for(cfg, flag)
+            a, kc, vc = L.cached_attention(
+                p.attn, h, cache["k"][li], cache["v"][li], cache_len, cfg,
+                window=window, kv_mode=kv_mode,
+            )
+            x = x + a
+            x, _, _ = _maybe_ffn(p, x, cfg)
+            nks.append(kc)
+            nvs.append(vc)
+        new_cache = {"k": torch.stack(nks, 0), "v": torch.stack(nvs, 0)}
+
+    logits = _logits(model, x, cfg)
+    return _greedy(logits), new_cache
+
+
+def lm_prefill(
+    model: LM,
+    tokens: torch.Tensor,
+    cfg,
+    *,
+    vision_embeds: Optional[torch.Tensor] = None,
+    positions3: Optional[torch.Tensor] = None,
+):
+    """Prefill: full forward collecting decode-ready caches.
+
+    Returns (last_logits (B,1,Vp), caches). Cache layout matches
+    init_decode_cache so the serving engine can continue decoding.
+    """
+    logits, _aux, caches = lm_forward(
+        model, tokens, cfg,
+        vision_embeds=vision_embeds, positions3=positions3,
+        collect_cache=True,
+    )
+    return logits[:, -1:], caches

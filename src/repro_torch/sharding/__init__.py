@@ -1,0 +1,13 @@
+"""Topology context of the model code (port of ``repro.sharding``)."""
+
+from repro_torch.sharding.specs import (
+    Topology,
+    current_topology,
+    make_topology,
+    require_local,
+    shard,
+    use_topology,
+)
+
+__all__ = ["Topology", "current_topology", "make_topology", "require_local",
+           "shard", "use_topology"]

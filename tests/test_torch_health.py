@@ -317,3 +317,57 @@ def test_health_check_prints_all_ok(subprocess_runner):
     assert ("health_check_summary,bitwise_equal,1,straggler_axis,1,"
             "straggler_src,0,straggler_dst,1,attribution_ok,1,slo_alert,1,"
             "dump_valid,1") in out
+
+
+class _StallingBackend:
+    """A level's exchanges, stalling ``stall_s`` on the first exchange of
+    each pair (``first_only``) or on every one."""
+
+    def __init__(self, p, stall_s, first_only):
+        self.sim = talg.SimBackend(p, torch.device("cpu"))
+        self.stall_s, self.first_only, self.seen = stall_s, first_only, set()
+
+    @property
+    def p(self):
+        return self.sim.p
+
+    def rank(self):
+        return self.sim.rank()
+
+    def permute(self, tree, perm):
+        import time
+
+        key = tuple(tuple(map(int, pair)) for pair in perm)
+        if not (self.first_only and key in self.seen):
+            time.sleep(self.stall_s)
+        self.seen.add(key)
+        return self.sim.permute(tree, perm)
+
+
+def _probe_ewma(inner, plain):
+    det = thealth.LinkStragglerDetector(min_samples=1, report_after=1)
+    probe = thealth.LinkProbeBackend(inner, ttracing.NoopTracer(), level=1,
+                                     detector=det, plain=plain)
+    x = torch.arange(32.0).reshape(4, 8)
+    pairs = [(0, 1), (1, 2), (2, 3)]
+    got = probe.permute(x, pairs)
+    assert torch.equal(got, talg.SimBackend(4, torch.device("cpu")).permute(x, pairs))
+    return {(r["src"], r["dst"]): r["ewma_us"] for r in det.summary()}
+
+
+def test_a_one_off_stall_on_a_fault_free_level_is_not_the_message_cost():
+    """On a fault-free level (``inner`` is ``plain``) a message costs the
+    least of its timed exchanges: one stalled exchange (a preempted
+    thread, a cold cache) does not reach the detector."""
+    level = _StallingBackend(4, 0.02, first_only=True)
+    ewma = _probe_ewma(level, level)
+    assert set(ewma) == {(0, 1), (1, 2), (2, 3)}
+    assert max(ewma.values()) < 10e3, ewma
+
+
+def test_a_delay_drawn_by_the_lossy_backend_is_the_message_cost():
+    """Under chaos ``inner`` draws a fault (a delay among them) on each
+    exchange, so its one exchange is the message's cost, delay included."""
+    plain = talg.SimBackend(4, torch.device("cpu"))
+    ewma = _probe_ewma(_StallingBackend(4, 0.005, first_only=False), plain)
+    assert min(ewma.values()) >= 5e3, ewma

@@ -79,3 +79,23 @@ def test_no_source_file_imports_jax_or_the_reference():
     assert pattern.search("import repro")
     assert not pattern.search("from repro_torch.core import packet")
     assert not pattern.search("import repro_torch")
+
+
+def test_model_and_serving_modules_are_covered():
+    """The model substrate and the serving path are among the modules the
+    import checks above load and scan."""
+    mods = _modules()
+    for mod in ("repro_torch.perf_flags", "repro_torch.configs",
+                "repro_torch.configs.base", "repro_torch.configs.mamba2_130m",
+                "repro_torch.configs.smollm_360m", "repro_torch.sharding",
+                "repro_torch.sharding.specs", "repro_torch.models",
+                "repro_torch.models.layers", "repro_torch.models.mamba",
+                "repro_torch.models.moe", "repro_torch.models.transformer",
+                "repro_torch.models.encdec", "repro_torch.models.model",
+                "repro_torch.serving", "repro_torch.serving.engine",
+                "repro_torch.launch", "repro_torch.launch.serve",
+                "repro_torch.interop"):
+        assert mod in mods, mod
+    from repro_torch.interop import model_params_from_numpy
+
+    assert callable(model_params_from_numpy)
