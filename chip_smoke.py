@@ -48,10 +48,30 @@ non-zero without printing a result:
               Mamba2-130m served as a tenant of the card's
               ``DescriptorBroker`` (its per-step ALLREDUCE through K1):
               ``collect_service_stats()`` equal to the host's count, K1's
-              launches rising. Its profiler readings come at the end of
-              ``times``. Every line carries the card's name and power
-              limit.
-5. main     — the offload path: ``OffloadEngine()`` (on the GPU by default)
+              launches rising. Its profiler readings come after ``tune``,
+              right before ``profile``. Every line carries the card's name
+              and power limit.
+5. mesh     — the model code's mesh paths (``repro_torch.compat``'s
+              rank-group collectives and ``block_shard_map``): Mamba2-130m's
+              mixer at full width in float32, x (2, 4096, 768),
+              sequence-parallel under a co-resident (1, 8) mesh against the
+              unsharded mixer (output and SSD state within 2e-3, conv tail
+              1e-4; K3 once for all 8 shards); the 24-layer Mamba2-130m
+              ``lm_forward`` at (8, 4096) in bf16 under that mesh and without
+              it (logits' max and median gap held to ``MESH_FORWARD_BOUND``,
+              24 K3 launches, host ms in turns); one OLMoE-1B-7B MoE block at
+              full width in float32, x (4, 512, 2048), expert-parallel under
+              (1, 8) and (2, 4) against ``_dense_moe`` (2e-4,
+              ``load_balance`` 1e-3; one K3 launch a block for the (8, 64)
+              expert offsets) and at capacity 0.25 finite with dropped
+              picks; SmolLM-360M in bf16 through ``ServeEngine(4, 256)``
+              under (1, 4) (decode ``kv_mode="seq"``) serving the unmeshed
+              engine's tokens wherever its top-2 margin exceeds
+              ``SERVE_SAFE_MARGIN`` and the prefixes agree, tokens/s and
+              decode-step ms both ways. First ``mamba_sp_check`` and
+              ``moe_check`` (reduced, co-resident) on the card.
+              Its device times come with ``serve``'s, before ``profile``.
+6. main     — the offload path: ``OffloadEngine()`` (on the GPU by default)
               -> ``make_descriptor(..., backend="pallas", chunks=1)`` ->
               ``offload`` for SCAN, EXSCAN, ALLREDUCE and BARRIER at p = 8 and
               16 over the osu_scan message sizes (4 B - 1 MiB per rank) plus a
@@ -59,7 +79,7 @@ non-zero without printing a result:
               lowering and, on a small input, against numpy. K1's launch
               counts (in all and by path) are zeroed right before and read
               right after: every launch on the register path.
-6. service  — the multi-tenant broker (``DescriptorBroker`` over
+7. service  — the multi-tenant broker (``DescriptorBroker`` over
               ``OffloadEngine()``, its flush thread on the card): 1, 8 and
               64 client threads stream SCAN, EXSCAN and ALLREDUCE at axes
               (1, 8) through K1 (``backend="pallas"``, ``chunks=1``),
@@ -76,7 +96,7 @@ non-zero without printing a result:
               with it on; writing into one ticket's result leaves the
               others alone. Prints requests/s, client p50/p99 latency, the
               coalesce factor and K1 launches per request.
-7. reliability — ``repro_torch.testing.chaos_check`` on the card at (2, 4)
+8. reliability — ``repro_torch.testing.chaos_check`` on the card at (2, 4)
               and at (1, 8), on the default backend as the reference runs
               it: all five CollTypes bitwise through seeded 5% drop +
               corrupt chaos (retries), a poisoned payload quarantined by
@@ -90,13 +110,13 @@ non-zero without printing a result:
               declines the two-axis plan, and at (1, 8) through K1, every
               dispatch counted on K1), and ``payload_checksum`` at 16 KiB
               and 8 MiB.
-8. health   — ``repro_torch.testing.health_check`` at (2, 4) on the card
+9. health   — ``repro_torch.testing.health_check`` at (2, 4) on the card
               (a link-probed traced dispatch with one link slowed: the
               detector names that link and no other; sim, driver-mode and
               probed results bitwise; a deadline-miss SLO alert; the flight
               recorder's dump); ``HealthMonitor.ingest`` of a broker's and
               its engine's telemetry and ``render_dashboard`` of both.
-9. entry    — the on-chip entry points at full width: Mamba2-130m's segment
+10. entry    — the on-chip entry points at full width: Mamba2-130m's segment
               scan, OLMoE's expert offsets, memory-bound (8192, 8192) scans,
               Mamba2-130m's SSD recurrence, SmolLM-360M and Gemma3-27B
               attention and a decode step. The launch counts of K3, K4 (also
@@ -104,7 +124,7 @@ non-zero without printing a result:
               (one a call for K3 and K4; for K5 the launches its C entry
               reports, held to ``plan_launch``'s count); each result is held
               against its plain version.
-10. spmd     — the per-rank path: K2 (the per-rank collective kernel)
+11. spmd     — the per-rank path: K2 (the per-rank collective kernel)
               through ``get_backend("pallas").lower(plan, op,
               axis_names=("i",))`` under the port's ``shard_map`` on
               co-resident meshes of 8 and 16 ranks on the card (its cluster
@@ -119,12 +139,12 @@ non-zero without printing a result:
               after. Then the engine in driver mode (a mesh passed to
               ``offload``) for the five CollTypes and a planned (2, 4) SCAN,
               bitwise against sim mode.
-11. baseline — the paper's comparison (Figs. 4-5) at p = 8, float32 SUM:
+12. baseline — the paper's comparison (Figs. 4-5) at p = 8, float32 SUM:
               host-stepped ``host_scan`` (a dispatch and a sync per hop)
               against the whole schedule as one CUDA graph replay, and K1
               through the engine for hillis_steele; host_scan == sim_scan
               bitwise.
-12. tune     — the tuner on the card (``repro_torch.offload.tuner``):
+13. tune     — the tuner on the card (``repro_torch.offload.tuner``):
               ``autotune`` over p = 2-16 x 1 KiB - 1 MiB x the five colls x
               every applicable algorithm (eager, CUDA events),
               ``tune_schedule`` over (1, 8), (1, 16) and (2, 4) x
@@ -139,7 +159,14 @@ non-zero without printing a result:
               float32 MAX) and within ``scan_tolerance`` of float64 numpy
               (float32 SUM). Prints the fit, the p = 8 winners beside
               ``DEFAULT_LINK_MODEL``'s picks and the backend races.
-13. profile  — ``profile_offload`` (``torch.profiler``) of hillis_steele
+14. profile  — after the serving path's and the mesh phase's profiler
+              readings (K3's device time in a Mamba2-130m prefill, a decode
+              step's device time and host share for Mamba2-130m and
+              SmolLM-360M, the (8, 4096) bf16 forward with and without the
+              (1, 8) mesh, K3's device time in it beside the same scan
+              alone and its bytes bound): two ``profile_offload`` sessions
+              of one K1 dispatch in a row, the second holding K1's device
+              event; then ``profile_offload`` of hillis_steele
               SCAN at p = 8 over the baseline sizes: K1 and the default
               lowering in sim mode, driver mode, the (2, 4) optimized plan
               in driver mode, and K2's per-rank lowering (``profile_call``);
@@ -151,7 +178,7 @@ non-zero without printing a result:
               ``engine.compile`` / phase span -> ``phase_round_count``
               round spans, the merged host+device trace aligned, the
               engine's series in the Prometheus text.
-14. times   — every kernel, its plain version and one PyTorch library call
+15. times   — every kernel, its plain version and one PyTorch library call
               at the main and entry shapes: device time from
               ``torch.profiler`` and the per-call time with CUDA events
               (host overhead included), beside the least time the card's
@@ -162,13 +189,7 @@ non-zero without printing a result:
               beside sim mode's; and K4's chunked path beside its column
               path (the first port's kernel), in turns, at Mamba2-130m's
               SSD shape in float32 and bf16, with the same-bytes time of
-              ``torch.add(a, b, out=h)``; then the serving path's profiler
-              readings: K3's device time in a Mamba2-130m prefill, a
-              decode step's device time and host share for Mamba2-130m and
-              SmolLM-360M, and one Mamba2-130m ``lm_forward`` at (8, 4096)
-              in bf16 with K3's device time at its (8, 16, 24, 256)
-              segment-scan shape in the model beside the same scan alone
-              and its bytes bound.
+              ``torch.add(a, b, out=h)``.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is the result object.
@@ -1477,6 +1498,11 @@ def entry_cases(torch, device):
                            dtype=torch.int32)
     scan_case("olmoe_1b_7b expert offsets (1,64) int32 add exclusive",
               counts, "add", exclusive=True)
+    # the EP region's offsets: the (R, E) counts of 8 co-resident ranks
+    counts = torch.randint(0, 256, (8, 64), generator=gen, device=device,
+                           dtype=torch.int32)
+    scan_case("olmoe_1b_7b EP expert offsets (8,64) int32 add exclusive",
+              counts, "add", exclusive=True)
     # memory-bound: I/O offsets / radix bucket bases over 256 MiB
     big = (8192, 8192)
     for op, dtype in (("add", torch.float32), ("max", torch.float32),
@@ -1954,6 +1980,29 @@ def profile_retaken(torch, call, launches_of=None):
                          f"({launched} launches in the window)")
 
 
+def first_launch(trace_path):
+    """The first kernel launch a profiler session recorded (the primer of
+    ``profile_call``): its host duration and whether its kernel left a
+    device record."""
+    from repro_torch.obs.export import load_chrome_trace
+    from repro_torch.offload.profiling import DEVICE_EVENT_CATS
+
+    if trace_path is None:
+        return {"first_launch_us": None, "first_launch_recorded": None}
+    events = [e for e in load_chrome_trace(trace_path)["traceEvents"]
+              if e.get("ph") == "X"]
+    launches = sorted((e for e in events if e.get("name") == "cudaLaunchKernel"),
+                      key=lambda e: float(e["ts"]))
+    if not launches:
+        return {"first_launch_us": None, "first_launch_recorded": None}
+    corr = (launches[0].get("args") or {}).get("correlation")
+    return {"first_launch_us": float(launches[0].get("dur", 0.0)),
+            "first_launch_recorded": any(
+                e.get("cat") in DEVICE_EVENT_CATS
+                and (e.get("args") or {}).get("correlation") == corr
+                for e in events)}
+
+
 def phase_profile(torch, device):
     """profile_offload on the card: K1 through the engine in sim mode, the
     default sim lowering, driver mode, K2's per-rank lowering under
@@ -2010,6 +2059,22 @@ def phase_profile(torch, device):
         legs.append(("driver (2,4) optimized", d24,
                      {"axis_name": ("a", "b"), "mesh": grid}, None, None))
         sizes.append((nb, x, legs))
+    # two sessions in a row, after the serving path's and the mesh phase's
+    # profiler sessions: the second must hold K1's device event (a first
+    # launch there once left no device record; profile_call's primer launch
+    # is the repair), taken once
+    twice = []
+    with tempfile.TemporaryDirectory() as keep:
+        for _ in range(2):
+            before = k1.launches
+            timing = eng.profile_offload(sizes[0][2][0][1], sizes[0][1],
+                                         warmup=0, trace_dir=keep)
+            twice.append({"source": timing.source, "events": timing.events,
+                          "launches": k1.launches - before,
+                          "fallback_reason": timing.fallback_reason,
+                          **first_launch(timing.trace_path)})
+    if not profiled_ok(timing, twice[-1]["launches"]):
+        raise AssertionError(f"the second of two sessions in a row: {twice}")
     rows = []
     for nb, x, legs in sizes:
         want = eng.offload(legs[0][1], x)  # K1
@@ -2136,8 +2201,8 @@ def phase_profile(torch, device):
                     "memsets (torch.profiler, CUPTI); wall_us: host clock "
                     "around the profiled dispatch, profiler on; dispatch_us: "
                     "the engine's own clock, median of 20 after 3, before "
-                    "the process's first profiler session (and again after "
-                    "the phase's)",
+                    "this phase's profiler sessions (and again after them)",
+          "two_sessions": twice,
           "rows": rows,
           "backend_fallbacks": snap["backend_fallback_reasons"],
           "traced": {"spans": len(spans), "k1_round_spans": len(rounds),
@@ -3081,28 +3146,31 @@ def serve_full_width(torch, device, arch, smi, mods):
     return line
 
 
-def times_serve_model(torch, device, arch, smi):
+def times_serve_model(torch, device, arch, smi, mesh=None):
     """The profiler readings of one full-width family in bf16: one prefill
     (K3's device time in it, one launch a Mamba layer) and 8 decode steps
     of a full ``ServeEngine(4, 256)`` (a decode step's device-busy time
-    and its host share, 1 - device / wall)."""
+    and its host share, 1 - device / wall); under a co-resident mesh of
+    shape ``mesh`` when one is given."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving import Request, ServeEngine
-    from repro_torch.sharding import Topology
+    from repro_torch.sharding import Topology, make_topology, use_topology
 
     cfg = get_config(arch)
     api = build_model(cfg)
     model = api.init(torch.Generator().manual_seed(7), device=device)
     prompts = serve_prompts(cfg.vocab_size, 4)
-    eng = ServeEngine(api, model, Topology(mesh=None), batch_size=4,
+    topo = (Topology(mesh=None) if mesh is None
+            else make_topology(_mesh(device, mesh)))
+    eng = ServeEngine(api, model, topo, batch_size=4,
                       max_len=256, device=device)
     for p in prompts:
         eng.submit(Request(rid=0, prompt=p, max_new_tokens=64))
     eng._admit()
     eng.step()                                   # warm-up
     prompt = torch.as_tensor(prompts[0], device=device)[None]
-    with torch.inference_mode():
+    with torch.inference_mode(), use_topology(topo):
         api.prefill(model, {"tokens": prompt})   # warm-up
         _, pf, pf_counts = profiled(
             torch, lambda: api.prefill(model, {"tokens": prompt}),
@@ -3115,7 +3183,7 @@ def times_serve_model(torch, device, arch, smi):
     dec_wall, dec, _ = profiled(torch, decode_steps, ())
     line = {
         "phase": "times_serve_model", "arch": arch, "dtype": cfg.dtype,
-        "prompt_tokens": len(prompts[0]),
+        "mesh": mesh, "prompt_tokens": len(prompts[0]),
         "prefill_device_ms": None if pf is None else pf["*"],
         "decode_profiled_ms_per_step": dec_wall / 8,
         "decode_device_ms_per_step": None if dec is None else dec["*"] / 8,
@@ -3409,16 +3477,498 @@ def phase_serve(torch, device, smi):
 
 
 def phase_times_serve(torch, device, smi):
-    """The serving path's profiler readings, taken after the ``profile``
-    phase as every other profiler reading of this script is (a profiler
-    session before ``profile`` left ``profile_offload`` without device
-    events): K3's device time a Mamba2-130m prefill, a decode step's host
-    share for both full-width models, and the (8, 4096) forward."""
+    """The serving path's profiler readings, taken right before the
+    ``profile`` phase (the order in which ``profile_offload`` once lost its
+    device events, which ``profile`` now holds):
+    K3's device time a Mamba2-130m prefill, a decode step's host share for
+    both full-width models, and the (8, 4096) forward."""
     mods = kernel_modules()
     rows = [times_serve_model(torch, device, arch, smi)
             for arch in ("mamba2-130m", "smollm-360m")]
     forward = times_serve_forward(torch, device, smi, mods)
     return rows, forward
+
+
+# ---------------------------------------------------------------------------
+# The model code's mesh paths: the sequence-parallel Mamba mixer, the
+# expert-parallel MoE region, sequence-sharded decode, K3 in every shard
+# ---------------------------------------------------------------------------
+
+MESH_MIXER = (2, 4096)        # (B, S) of the full-width SP mixer, float32
+MESH_MOE = (4, 512)           # (B, S) of the full-width OLMoE block, float32
+MESH_MOE_MESHES = ((1, 8), (2, 4))
+#: the bound on the (8, 4096) bf16 forward's logits, meshed against
+#: unmeshed, relative to the largest logit (stated in PERF.md before the
+#: first run): its max and its median gap
+MESH_FORWARD_BOUND = {"max": 0.25, "median": 1e-2}
+#: an unmeshed token whose top-2 logit margin is above this must be served
+#: alike under the mesh: the bf16 logits of SmolLM-360M's random weights
+#: (largest about 3) step by 1/64-1/32, and a CPU rehearsal at 2 of its 32
+#: layers found the two runs 1/32 apart where their tokens agreed
+SERVE_SAFE_MARGIN = 0.25
+
+
+def _mesh(device, shape):
+    from repro_torch.compat import Mesh
+
+    return Mesh(shape, ("data", "model"), device=device)
+
+
+def _under(mesh, fn):
+    from repro_torch.sharding import make_topology, use_topology
+
+    with use_topology(make_topology(mesh)):
+        return fn()
+
+
+def _zeroed(mods):
+    for key in mods:
+        mods[key].launches = 0
+
+
+def mesh_mixer(torch, device, smi, mods):
+    """Mamba2-130m's mixer at full width (d_model 768, 24 heads of 64,
+    state 128, chunk 256), float32, x (2, 4096, 768): sequence-parallel
+    under a co-resident (1, 8) mesh (512 tokens, 2 chunks a shard) against
+    the unsharded mixer on the card, at the reference check's tolerances
+    (``repro_torch.testing.mamba_sp_check.compare``); K3 launches once for
+    all shards."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba as M
+    from repro_torch.testing import mamba_sp_check
+
+    cfg = get_config("mamba2-130m")
+    p = M.init_mamba(torch.Generator().manual_seed(31), cfg, torch.float32,
+                     device)
+    B, S = MESH_MIXER
+    x = torch.from_numpy((np.random.default_rng(31).normal(
+        size=(B, S, cfg.d_model)) * 0.1).astype(np.float32)).to(device)
+    mesh = _mesh(device, (1, 8))
+    with torch.inference_mode():
+        y_ref, cache_ref = M.mamba_mixer(p, x, cfg)
+        _under(mesh, lambda: M.mamba_mixer(p, x, cfg, seq_parallel=True))
+        torch.cuda.synchronize()
+        _zeroed(mods)
+        t0 = time.perf_counter()
+        y_sp, cache_sp = _under(
+            mesh, lambda: M.mamba_mixer(p, x, cfg, seq_parallel=True))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {key: mods[key].launches for key in mods}
+    checks = mamba_sp_check.compare(torch, y_ref, cache_ref, y_sp, cache_sp)
+    failed = [c for c in checks if not c[1]]
+    if failed:
+        raise AssertionError(f"full-width SP mixer: {failed}")
+    if launches["k3"] != 1:
+        raise AssertionError(f"SP mixer: K3 launched {launches['k3']} times, "
+                             "1 predicted")
+    line = {"phase": "mesh_mixer", "arch": cfg.name, "dtype": "float32",
+            "shape": [B, S, cfg.d_model], "mesh": [1, 8],
+            "max_abs_err": {name: err for name, _, err in checks},
+            "tolerance": {"output": mamba_sp_check.TOL,
+                          "ssm": mamba_sp_check.TOL,
+                          "conv_tail": mamba_sp_check.CONV_TOL},
+            "k3_launches": launches["k3"], "wall_ms": wall_ms, "card": smi,
+            "ok": True}
+    emit(line)
+    del p, x, y_ref, y_sp, cache_ref, cache_sp
+    torch.cuda.empty_cache()
+    return line
+
+
+def logits_gap(torch, got, want):
+    """|got - want| over max |want| for (B, S, V) logits, on the card in
+    float32 one sequence at a time: the largest over every logit, and the
+    median over every 16th position's (a 16th of the logits: the median of
+    all 1.6e9 would sort them)."""
+    scale = max(float(want.abs().max()), 1e-30)
+    worst, sample = 0.0, []
+    for b in range(want.shape[0]):
+        d = (got[b].float() - want[b].float()).abs()
+        worst = max(worst, float(d.max()))
+        sample.append(d[::16].flatten())
+    return {"max": worst / scale,
+            "median": float(torch.cat(sample).median()) / scale}
+
+
+def mesh_forward(torch, device, smi, mods):
+    """The Mamba2-130m ``lm_forward`` at (8, 4096) in bf16, full width (24
+    layers, weights from a seed), under the co-resident (1, 8) mesh and
+    without one: the paper's scan carries every layer's SSD state across 8
+    shards. The logits' gap is held to ``MESH_FORWARD_BOUND``; K3 launches
+    once a layer for all shards; each forward's ms on the host clock
+    (synchronized), in turns."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("mamba2-130m")
+    api = build_model(cfg)
+    model = api.init(torch.Generator().manual_seed(23), device=device)
+    B, S = SERVE_FORWARD
+    tokens = model_batch(torch, cfg, B, S, device, seed=23)["tokens"]
+    mesh = _mesh(device, (1, 8))
+
+    def plain():
+        return api.forward(model, {"tokens": tokens})[0]
+
+    def meshed():
+        return _under(mesh, plain)
+
+    times = {"plain": [], "mesh": []}
+    with torch.inference_mode():
+        want, got = plain(), meshed()            # warm-up, and the outputs
+        torch.cuda.synchronize()
+        for name in ("plain", "mesh", "mesh", "plain", "plain", "mesh"):
+            fn = plain if name == "plain" else meshed
+            _zeroed(mods)
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "mesh":
+                k3 = mods["k3"].launches
+                if k3 != cfg.num_layers:
+                    raise AssertionError(f"meshed forward: K3 launched {k3} "
+                                         f"times, {cfg.num_layers} layers")
+            del out
+    if got.shape != (B, S, cfg.padded_vocab) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"meshed forward: {tuple(got.shape)}, finite "
+                             f"{bool(torch.isfinite(got).all())}")
+    gap = logits_gap(torch, got, want)
+    for key, bound in MESH_FORWARD_BOUND.items():
+        if gap[key] > bound:
+            raise AssertionError(f"meshed forward logits: {key} gap "
+                                 f"{gap[key]:.3g}, bound {bound}")
+    line = {"phase": "mesh_forward", "arch": cfg.name, "dtype": cfg.dtype,
+            "shape": [B, S], "mesh": [1, 8], "layers": cfg.num_layers,
+            "logits_gap": gap, "bound": MESH_FORWARD_BOUND,
+            "k3_launches": cfg.num_layers,
+            "ms": {k: statistics.median(v) for k, v in times.items()},
+            "ms_runs": times, "card": smi, "ok": True}
+    emit(line)
+    del model, want, got
+    torch.cuda.empty_cache()
+    return line
+
+
+def mesh_moe(torch, device, smi, mods):
+    """One OLMoE-1B-7B MoE block at full width (d_model 2048, 64 experts,
+    top-8, d_ff 1024), float32, x (4, 512, 2048): the EP region under
+    co-resident (1, 8) and (2, 4) meshes against ``_dense_moe`` on the card
+    at capacity factor 8.0 (``repro_torch.testing.moe_check``'s tolerances),
+    and at 0.25 a finite output with dropped picks; K3 (the per-expert
+    offsets, the (8, 64) counts in one launch) once a block."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MO
+    from repro_torch.testing import moe_check
+
+    cfg = dc.replace(get_config("olmoe-1b-7b"), capacity_factor=8.0)
+    drop = dc.replace(cfg, capacity_factor=0.25)
+    p = MO.init_moe(torch.Generator().manual_seed(32), cfg, torch.float32,
+                    device)
+    B, S = MESH_MOE
+    x = torch.from_numpy(np.random.default_rng(32).normal(
+        size=(B, S, cfg.d_model)).astype(np.float32)).to(device)
+    rows = []
+    with torch.inference_mode():
+        want, aux = MO._dense_moe(p, x, cfg, "silu")
+        probs = torch.softmax(x.reshape(-1, cfg.d_model).float() @ p.router, -1)
+        top = torch.topk(probs, cfg.moe_top_k + 1, dim=-1).values
+        margin = float((top[:, -2] - top[:, -1]).min())
+        for shape in MESH_MOE_MESHES:
+            mesh = _mesh(device, shape)
+            torch.cuda.synchronize()
+            _zeroed(mods)
+            t0 = time.perf_counter()
+            y, got_aux = _under(mesh, lambda: MO.moe_block(p, x, cfg))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            k3 = mods["k3"].launches
+            err = float((y - want).abs().max())
+            lb_err = abs(float(got_aux["load_balance"]) - float(aux["load_balance"]))
+            if not bool(torch.allclose(y, want, atol=moe_check.TOL,
+                                       rtol=moe_check.TOL)):
+                raise AssertionError(f"EP {shape}: max error {err:.3g} "
+                                     f"against the dense path")
+            if lb_err >= moe_check.LB_TOL:
+                raise AssertionError(f"EP {shape}: load_balance off by {lb_err}")
+            if k3 != 1:
+                raise AssertionError(f"EP {shape}: K3 launched {k3} times, "
+                                     "1 predicted")
+            del y
+            y_drop, _ = _under(mesh, lambda: MO.moe_block(p, x, drop))
+            dropped = moe_check.dropped_picks(p, x, drop, mesh)
+            if not bool(torch.isfinite(y_drop).all()) or dropped <= 0:
+                raise AssertionError(f"EP {shape} at capacity 0.25: finite "
+                                     f"{bool(torch.isfinite(y_drop).all())}, "
+                                     f"{dropped} picks dropped")
+            del y_drop
+            rows.append({"mesh": list(shape), "max_abs_err": err,
+                         "load_balance_err": lb_err, "k3_launches": k3,
+                         "wall_ms": wall_ms, "dropped_picks_at_0.25": dropped})
+    line = {"phase": "mesh_moe", "arch": cfg.name, "dtype": "float32",
+            "shape": [B, S, cfg.d_model], "experts": cfg.moe_num_experts,
+            "top_k": cfg.moe_top_k, "d_ff": cfg.d_ff,
+            "min_router_margin": margin,
+            "tolerance": {"output": moe_check.TOL,
+                          "load_balance": moe_check.LB_TOL},
+            "runs": rows, "card": smi, "ok": True}
+    emit(line)
+    del p, x, want
+    torch.cuda.empty_cache()
+    return line
+
+
+class LogitServe:
+    """A ``ServeEngine`` whose every greedy token also keeps the logits it
+    was read from, by request: the prefill's last logits for the first
+    token, and each decode step's last-position logits (read where
+    ``_greedy`` reads them). Rows are float32 on the host."""
+
+    def __init__(self, torch, engine):
+        from repro_torch.models import transformer as T
+
+        self.rows = {}
+        api = engine.api
+        prefill, decode = api.prefill, api.decode_step
+
+        def recorded_prefill(m, batch):
+            out = prefill(m, batch)
+            self._pending = out[0][0, -1].float().cpu()
+            return out
+
+        def recorded_decode(m, tok, cache, clen):
+            slots = {s: r.rid for s, r in enumerate(engine.slots) if r is not None}
+            greedy, seen = T._greedy, []
+
+            def keeping(logits):
+                seen.append(logits[:, -1].float().cpu())
+                return greedy(logits)
+
+            T._greedy = keeping
+            try:
+                out = decode(m, tok, cache, clen)
+            finally:
+                T._greedy = greedy
+            for s, rid in slots.items():
+                self.rows[rid].append(seen[-1][s])
+            return out
+
+        prefill_into = engine._prefill_into
+
+        def recorded_prefill_into(slot, req):
+            prefill_into(slot, req)
+            self.rows[req.rid] = [self._pending]
+
+        engine._prefill_into = recorded_prefill_into
+        engine.api = dataclasses.replace(api, prefill=recorded_prefill,
+                                         decode_step=recorded_decode)
+
+    def margins(self, torch, rid):
+        return [float(d[0] - d[1]) for d in
+                (torch.topk(r, 2).values for r in self.rows[rid])]
+
+
+def mesh_serve(torch, device, smi, mods):
+    """SmolLM-360M at full width in bf16 through ``ServeEngine(4, 256)``
+    under a co-resident (1, 4) mesh: decode takes ``kv_mode="seq"`` (its 5
+    KV heads do not divide 4; 64 cache positions a shard), the serve
+    phase's 8 requests of 16 new tokens. Each request's tokens equal the
+    unmeshed engine's wherever their prefixes agree and the unmeshed top-2
+    margin exceeds ``SERVE_SAFE_MARGIN`` (a request is compared up to its
+    first differing token, whose margin must be below that). Reported: the
+    largest logit gap between
+    the two runs where a request's tokens so far agree, and both runs'
+    tokens/s and decode-step ms."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import decode_kv_mode
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.sharding import Topology, make_topology
+
+    cfg = get_config("smollm-360m")
+    api = build_model(cfg)
+    model = api.init(torch.Generator().manual_seed(7), device=device)
+    mesh = _mesh(device, (1, 4))
+    kv_mode = _under(mesh, lambda: decode_kv_mode(cfg))
+    if kv_mode != "seq":
+        raise AssertionError(f"SmolLM-360M on (1, 4): kv_mode {kv_mode!r}")
+    runs = {}
+    for name, topo in (("plain", Topology(mesh=None)),
+                       ("mesh", make_topology(mesh))):
+        warm = ServeEngine(api, model, topo, batch_size=4, max_len=256,
+                           device=device)
+        warm.submit(Request(rid=0, prompt=serve_prompts(cfg.vocab_size, 1)[0],
+                            max_new_tokens=3))
+        warm.run_until_drained()
+        del warm
+        eng = ServeEngine(api, model, topo, batch_size=4, max_len=256,
+                          device=device)
+        logits = LogitServe(torch, eng)
+        timed = TimedServe(torch, eng, mods["k3"])
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS)
+                for i, p in enumerate(serve_prompts(cfg.vocab_size,
+                                                    SERVE_REQUESTS))]
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        tokens = sum(len(r.generated) for r in reqs)
+        runs[name] = {
+            "tokens": [list(r.generated) for r in reqs], "logits": logits,
+            "tokens_per_s": tokens / wall_s, "wall_s": wall_s,
+            "decode_step_ms_median": statistics.median(timed.decode_ms),
+            "decode_steps": len(timed.decode_ms),
+        }
+        del eng
+    compared, gap, scale, min_margin = 0, 0.0, 0.0, float("inf")
+    plain, meshed = runs["plain"]["logits"], runs["mesh"]["logits"]
+    for rid, (want, got) in enumerate(zip(runs["plain"]["tokens"],
+                                          runs["mesh"]["tokens"])):
+        margin = plain.margins(torch, rid)
+        min_margin = min(min_margin, min(margin))
+        # the first token the two runs differ on: its margin must not have
+        # been safe; before it every token with a safe margin was compared
+        agree = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+                     len(want))
+        if agree < len(want) and margin[agree] > SERVE_SAFE_MARGIN:
+            raise AssertionError(f"request {rid}: meshed tokens {got} against "
+                                 f"{want}, margin {margin[agree]:.4g} at "
+                                 f"token {agree}")
+        compared += sum(m > SERVE_SAFE_MARGIN for m in margin[:agree + 1])
+        for a, b in zip(plain.rows[rid][:agree + 1], meshed.rows[rid][:agree + 1]):
+            gap = max(gap, float((a - b).abs().max()))
+            scale = max(scale, float(a.abs().max()))
+    line = {"phase": "mesh_serve", "arch": cfg.name, "dtype": cfg.dtype,
+            "mesh": [1, 4], "kv_mode": kv_mode, "batch_size": 4,
+            "max_len": 256, "requests": SERVE_REQUESTS,
+            "safe_margin": SERVE_SAFE_MARGIN, "tokens_compared": compared,
+            "tokens_total": sum(map(len, runs["plain"]["tokens"])),
+            "tokens_equal": runs["plain"]["tokens"] == runs["mesh"]["tokens"],
+            "min_margin": min_margin,
+            "logits_gap_where_tokens_agree": gap, "largest_logit": scale,
+            **{f"{k}_{name}": runs[name][k] for name in runs
+               for k in ("tokens_per_s", "decode_step_ms_median", "decode_steps")},
+            "card": smi, "ok": True}
+    emit(line)
+    del model
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_mesh(torch, device, smi):
+    """The model code's mesh paths on the card (see the module docstring,
+    phase 5); their device times come later, in
+    :func:`phase_times_mesh`."""
+    mods = kernel_modules()
+    t0 = time.perf_counter()
+    # the reference's two checks, reduced, on the card (ALL-OK each)
+    check_module("mamba_sp_check", [], device)
+    check_module("moe_check", [], device)
+    mixer = mesh_mixer(torch, device, smi, mods)
+    forward = mesh_forward(torch, device, smi, mods)
+    moe = mesh_moe(torch, device, smi, mods)
+    serve = mesh_serve(torch, device, smi, mods)
+    # one meshed run of each: the mixer, the 24-layer forward, the block
+    # at each mesh
+    k3 = (mixer["k3_launches"] + forward["k3_launches"]
+          + sum(r["k3_launches"] for r in moe["runs"]))
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t0,
+          "mixer_max_abs_err": mixer["max_abs_err"],
+          "forward_logits_gap": forward["logits_gap"],
+          "forward_ms": forward["ms"],
+          "moe_max_abs_err": {str(r["mesh"]): r["max_abs_err"]
+                              for r in moe["runs"]},
+          "serve_tokens_compared": serve["tokens_compared"],
+          "k3_launches": k3, "card": smi, "ok": True})
+    return {"k3_launches": k3}
+
+
+def kernel_times(torch, fn):
+    """One run of ``fn`` under ``torch.profiler`` (device activity only):
+    its host wall ms and each kernel's (device ms, launches) by name; the
+    table is empty when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    table = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = getattr(evt, "cuda_time_total", 0.0)
+        if us > 0:
+            table[evt.key] = (us / 1e3, evt.count)
+    return wall_ms, table
+
+
+def phase_times_mesh(torch, device, smi):
+    """The mesh paths' profiler readings: the Mamba2-130m (8, 4096) bf16
+    forward under the (1, 8) mesh beside the unmeshed one (device ms, host
+    share, K3's device ms, and the kernels whose device time the mesh adds
+    most), and SmolLM-360M's meshed decode step (device ms, host share)
+    through :func:`times_serve_model`."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("mamba2-130m")
+    api = build_model(cfg)
+    model = api.init(torch.Generator().manual_seed(23), device=device)
+    B, S = SERVE_FORWARD
+    tokens = model_batch(torch, cfg, B, S, device, seed=23)["tokens"]
+    mesh = _mesh(device, (1, 8))
+    line = {"phase": "times_mesh", "arch": cfg.name, "dtype": cfg.dtype,
+            "shape": [B, S], "mesh": [1, 8], "card": smi}
+    tables = {}
+    for name in ("plain", "mesh"):
+        def forward():
+            with torch.inference_mode():
+                if name == "plain":
+                    return api.forward(model, {"tokens": tokens})[0]
+                return _under(mesh, lambda: api.forward(
+                    model, {"tokens": tokens})[0])
+
+        forward()
+        wall_ms, table = kernel_times(torch, forward)
+        tables[name] = table
+        dev = sum(ms for ms, _ in table.values()) if table else None
+        k3 = [v for k, v in table.items() if "k3_scan_kernel" in k]
+        line[name] = {
+            "wall_ms": wall_ms, "device_ms": dev,
+            "host_share": None if dev is None else 1.0 - dev / wall_ms,
+            "k3_device_ms": sum(ms for ms, _ in k3) if k3 else None,
+            "k3_launches_profiled": sum(n for _, n in k3)}
+    added = sorted(
+        ((tables["mesh"].get(k, (0.0, 0))[0] - tables["plain"].get(k, (0.0, 0))[0],
+          k) for k in set(tables["mesh"]) | set(tables["plain"])),
+        reverse=True)[:8]
+    line["mesh_adds_most"] = [
+        {"kernel": k[:96], "ms": ms,
+         "launches": [tables[n].get(k, (0.0, 0))[1] for n in ("plain", "mesh")]}
+        for ms, k in added]
+    emit(line)
+    del model
+    torch.cuda.empty_cache()
+    serve = times_serve_model(torch, device, "smollm-360m", smi, mesh=(1, 4))
+    return line, serve
 
 
 def main() -> int:
@@ -3438,6 +3988,7 @@ def main() -> int:
     phase_kernel(torch, device)
     phase_onchip(torch, device)
     serve = phase_serve(torch, device, smi)
+    mesh = phase_mesh(torch, device, smi)
     launches = phase_main(torch, device)
     phase_service(torch, device)
     phase_reliability(torch, device)
@@ -3446,15 +3997,21 @@ def main() -> int:
     spmd_launches = phase_spmd(torch, device)
     phase_baseline(torch, device)
     phase_tune(torch, device)
+    # the serving path's and the mesh paths' profiler readings, then
+    # ``profile``: the order in which profile_offload once lost its device
+    # events
+    phase_times_serve(torch, device, smi)
+    phase_times_mesh(torch, device, smi)
     phase_profile(torch, device)
     k1 = phase_times(torch, device, card, launches)
     k2 = phase_times_spmd(torch, device, card, spmd_launches)
     onchip = phase_times_onchip(torch, card, entry_launches, cases)
     phase_times_k4(torch, device, card)
-    phase_times_serve(torch, device, smi)
     # the serving path's launches beside each kernel's own path: K3 under
-    # every Mamba2-130m prefill, K1 under the serving tenancy
+    # every Mamba2-130m prefill and in every mesh shard, K1 under the
+    # serving tenancy
     onchip[0]["serve_launches"] = serve["full"][0]["launches"]["k3"]
+    onchip[0]["mesh_launches"] = mesh["k3_launches"]
     k1["serve_launches"] = serve["tenancy"]["k1_launches"]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     emit({"kernels": [k1, k2, *onchip]})

@@ -21,6 +21,23 @@ contract maps *rows*, not blocks: every input leaf carries a leading axis of
 one row per rank in the order its spec names (first name major), and rank
 ``r`` sees its own row; every output leaf is stacked back the same way. A
 caller with ``k`` rows per rank reshapes to ``(P, k, ...)`` first.
+
+:func:`block_shard_map` is the reference's ``shard_map`` over block specs
+(:class:`P`), the form the model code's mesh paths use. Its contract is the
+**global value**: outside a region a value is the whole global tensor on
+the mesh's device, in every process of a process group alike. Inside, each
+leaf carries a leading axis ``R`` of rank rows: ``R = P`` for co-resident
+ranks (row ``f`` is the block of the rank at flat mesh coordinate ``f``),
+``R = 1`` for a process (its own block), so a region is written once over
+``(R, ...)``.
+
+The rank-group collectives :func:`psum`, :func:`pmax`, :func:`pmean` and
+:func:`all_to_all` (``lax``'s) take one axis name or a tuple of names (one
+group, first name major). A process builds them on ``ppermute``: ``p - 1``
+cyclic shifts along each named axis bring it every group member's value,
+then it combines them in group order ``0..p-1``. Co-resident ranks combine
+the stacked rows directly in that same order, so the two kinds agree
+bitwise.
 """
 
 from __future__ import annotations
@@ -163,6 +180,30 @@ class _RankGroup:
     def leave(self, out: PyTree, spec: Spec) -> PyTree:  # pragma: no cover
         raise NotImplementedError
 
+    # the block form (:func:`block_shard_map`): leaves carry ``R`` rank rows
+
+    #: rank rows a region's leaf carries (``R``)
+    rows: int
+
+    def combine(self, a: torch.Tensor, names: Tuple[str, ...],
+                op: Callable) -> torch.Tensor:  # pragma: no cover
+        """``op`` folded over the group's values in group order."""
+        raise NotImplementedError
+
+    def all_to_all(self, a: torch.Tensor, names: Tuple[str, ...],
+                   split: int, concat: int) -> torch.Tensor:  # pragma: no cover
+        raise NotImplementedError
+
+    def split_blocks(self, a: torch.Tensor,
+                     dims: List[Tuple[str, ...]]) -> torch.Tensor:  # pragma: no cover
+        """A global value as this group's ``(R, ...)`` rank rows."""
+        raise NotImplementedError
+
+    def join_blocks(self, a: torch.Tensor,
+                    dims: List[Tuple[str, ...]]) -> torch.Tensor:  # pragma: no cover
+        """``(R, ...)`` rank rows back into the global value."""
+        raise NotImplementedError
+
 
 class _CoResident(_RankGroup):
     rank_dims = 1
@@ -269,6 +310,78 @@ class _CoResident(_RankGroup):
         inverse[order] = torch.arange(order.numel(), device=order.device)
         return tree_map(lambda a: a.index_select(0, inverse), out)
 
+    @property
+    def rows(self) -> int:
+        return self.mesh.size
+
+    def _by_group(self, a: torch.Tensor, names: Tuple[str, ...]):
+        """``a``'s rows as ``(p, ...)``: the group's members in group order
+        along dim 0, the other mesh axes (in mesh order) and the value
+        after it; and how to put a value of that shape without dim 0 back
+        as rows of every member."""
+        mesh = self.mesh
+        self._check(a)
+        axes = [mesh.axis(n) for n in names]
+        rest = a.shape[1:]
+        v = a.reshape(mesh.shape + rest)
+        v = torch.movedim(v, axes, list(range(len(axes))))
+        others = v.shape[len(axes):]
+        by_group = v.reshape((-1,) + others)
+
+        def spread(r: torch.Tensor) -> torch.Tensor:
+            for ax in sorted(axes):
+                r = r.unsqueeze(ax)
+            return r.expand(mesh.shape + rest).reshape(a.shape)
+
+        return by_group, spread
+
+    def combine(self, a, names, op):
+        by_group, spread = self._by_group(a, names)
+        acc = by_group[0]
+        for j in range(1, by_group.shape[0]):
+            acc = op(acc, by_group[j])
+        return spread(acc)
+
+    def all_to_all(self, a, names, split, concat):
+        mesh = self.mesh
+        self._check(a)
+        rest = tuple(a.shape[1:])
+        ls, lc = split - 1, concat - 1
+        if ls < 0 or lc < 0:
+            raise ValueError("all_to_all splits and concatenates the value's "
+                             "own dims, not its rank rows (dim 0)")
+        sizes = tuple(mesh.shape[mesh.axis(n)] for n in names)
+        p = int(np.prod(sizes))
+        if rest[ls] % p:
+            raise ValueError(f"dim {split} of {tuple(a.shape)} does not split "
+                             f"into {p} blocks")
+        m, k = len(mesh.shape), len(names)
+        # the split dim as (group coordinates..., chunk), then each group
+        # axis swapped with its coordinate: a rank's split coordinates now
+        # name the member whose chunk it holds
+        v = a.reshape(mesh.shape + rest[:ls] + sizes + (rest[ls] // p,)
+                      + rest[ls + 1:])
+        perm = list(range(v.ndim))
+        for i, n in enumerate(names):
+            ax, sd = mesh.axis(n), m + ls + i
+            perm[ax], perm[sd] = perm[sd], perm[ax]
+        v = v.permute(perm)
+        subs = [m + ls + i for i in range(k)]
+        local = ([m + t for t in range(ls)] + [m + ls + k]
+                 + [m + ls + k + 1 + t for t in range(len(rest) - ls - 1)])
+        order = list(range(m)) + local[:lc] + subs + local[lc:]
+        out = list(rest)
+        out[ls] //= p
+        out[lc] *= p
+        return v.permute(order).reshape((self.mesh.size,) + tuple(out))
+
+    def split_blocks(self, a, dims):
+        return _blocks(self.mesh, a, dims)
+
+    def join_blocks(self, a, dims):
+        self._check(a)
+        return _assemble(self.mesh, a, dims)
+
 
 class _PerProcess(_RankGroup):
     rank_dims = 0
@@ -352,6 +465,138 @@ class _PerProcess(_RankGroup):
 
         return tree_map(gather, out)
 
+    rows = 1
+
+    def _gather(self, a: torch.Tensor, names: Tuple[str, ...]) -> List[torch.Tensor]:
+        """Every group member's ``a``, in group order (first name major):
+        ``p - 1`` cyclic shifts of :meth:`ppermute` along each named axis,
+        the last name first."""
+        vals = [a]
+        for name in reversed(names):
+            ax = self.mesh.axis(name)
+            p, me = self.mesh.shape[ax], self.coords[ax]
+            stacked = torch.stack(vals)
+            got: List[Any] = [None] * p
+            got[me] = stacked
+            for s in range(1, p):
+                got[(me - s) % p] = self.ppermute(
+                    stacked, name, [(i, (i + s) % p) for i in range(p)])
+            vals = [v for g in got for v in g.unbind(0)]
+        return vals
+
+    def _group_rank(self, names: Tuple[str, ...]) -> int:
+        r = 0
+        for n in names:
+            ax = self.mesh.axis(n)
+            r = r * self.mesh.shape[ax] + self.coords[ax]
+        return r
+
+    def combine(self, a, names, op):
+        vals = self._gather(a, names)
+        acc = vals[0]
+        for v in vals[1:]:
+            acc = op(acc, v)
+        return acc
+
+    def all_to_all(self, a, names, split, concat):
+        vals = self._gather(a, names)
+        p, me = len(vals), self._group_rank(names)
+        if a.shape[split] % p:
+            raise ValueError(f"dim {split} of {tuple(a.shape)} does not split "
+                             f"into {p} blocks")
+        return torch.cat([v.tensor_split(p, split)[me] for v in vals], concat)
+
+    def split_blocks(self, a, dims):
+        return _blocks(self.mesh, a, dims).narrow(0, self.group_rank, 1)
+
+    def join_blocks(self, a, dims):
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(a) for _ in range(self.mesh.size)]
+        dist.all_gather(parts, a.contiguous(), group=self.mesh.group)
+        return _assemble(self.mesh, torch.cat(parts), dims)
+
+
+# ---------------------------------------------------------------------------
+# Block specs (the reference's PartitionSpec over global values)
+# ---------------------------------------------------------------------------
+
+
+class P(tuple):
+    """A block spec, the reference's ``PartitionSpec``: one entry per
+    leading dim of a value, each ``None`` (not split), an axis name, or a
+    tuple of names (split over their product, first name major); dims past
+    the last entry are not split, and ``P()`` replicates the value."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def _spec_dims(mesh: Mesh, spec: P, shape,
+               whole: bool = True) -> List[Tuple[str, ...]]:
+    """The axis names splitting each dim of a value of ``shape`` (a whole
+    value, each named dim a multiple of its blocks; or one block)."""
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec!r} names {len(spec)} dims of a value "
+                         f"of shape {tuple(shape)}")
+    dims = [() if e is None else _spec_names(e) for e in spec]
+    dims += [()] * (len(shape) - len(dims))
+    used = [n for names in dims for n in names]
+    if len(set(used)) != len(used):
+        raise ValueError(f"spec {spec!r} names an axis twice")
+    for names, size in zip(dims, shape):
+        blocks = int(np.prod([mesh.shape[mesh.axis(n)] for n in names]))
+        if whole and size % blocks:
+            raise ValueError(f"spec {spec!r}: a dim of {size} does not split "
+                             f"into {blocks} blocks (shape {tuple(shape)})")
+    return dims
+
+
+def _blocks(mesh: Mesh, a: torch.Tensor, dims) -> torch.Tensor:
+    """The global value ``a`` as ``(P, ...)`` rows, row ``f`` the block of
+    the rank at flat mesh coordinate ``f``. A replicated value is a
+    stride-0 ``expand`` of it, not a copy."""
+    if not any(dims):
+        return a.unsqueeze(0).expand((mesh.size,) + tuple(a.shape))
+    split_shape, where, local = [], {}, []
+    for names, size in zip(dims, a.shape):
+        for n in names:
+            where[n] = len(split_shape)
+            split_shape.append(mesh.shape[mesh.axis(n)])
+        local.append(len(split_shape))
+        split_shape.append(size // int(np.prod(
+            [mesh.shape[mesh.axis(n)] for n in names])))
+    v = a.reshape(split_shape)
+    order = []
+    for n in mesh.axis_names:
+        if n not in where:           # a stride-0 dim for an unnamed axis
+            v = v.unsqueeze(-1)
+            where[n] = v.ndim - 1
+        order.append(where[n])
+    v = v.permute(order + local)
+    v = v.expand(mesh.shape + tuple(v.shape[len(order):]))
+    return v.reshape((mesh.size,) + tuple(v.shape[len(order):]))
+
+
+def _assemble(mesh: Mesh, rows: torch.Tensor, dims) -> torch.Tensor:
+    """``(P, ...)`` rows back into the global value: the blocks of every
+    named axis in place, the row of coordinate 0 along every axis ``dims``
+    leaves unnamed."""
+    local = tuple(rows.shape[1:])
+    v = rows.reshape(mesh.shape + local)
+    named = {n for names in dims for n in names}
+    v = v[tuple(slice(None) if n in named else 0 for n in mesh.axis_names)]
+    kept = [n for n in mesh.axis_names if n in named]
+    order, shape = [], []
+    for i, names in enumerate(dims):
+        order += [kept.index(n) for n in names] + [len(kept) + i]
+        shape.append(local[i] * int(np.prod(
+            [mesh.shape[mesh.axis(n)] for n in names])))
+    return v.permute(order).reshape(shape)
+
 
 # ---------------------------------------------------------------------------
 # The axis scope
@@ -434,5 +679,137 @@ def shard_map(
         finally:
             stack.pop()
         return mesh.ranks.leave(out, out_specs)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Rank-group collectives and the block-spec shard_map
+# ---------------------------------------------------------------------------
+
+
+def ppermute(x: PyTree, axis_name: str, perm) -> PyTree:
+    """``lax.ppermute``: ``(source, destination)`` pairs along one axis; a
+    rank with no in-edge gets zeros."""
+    return mesh_of(axis_name).ranks.ppermute(x, axis_name, perm)
+
+
+def _group(axis_name: Spec) -> Tuple[Mesh, Tuple[str, ...]]:
+    names = _spec_names(axis_name)
+    meshes = {id(mesh_of(n)): mesh_of(n) for n in names}
+    if not names or len(meshes) != 1 or len(set(names)) != len(names):
+        raise ValueError(f"axis names {names} must name distinct axes of one "
+                         "bound mesh")
+    return meshes.popitem()[1], names
+
+
+def _combined(x: PyTree, axis_name: Spec, op: Callable) -> PyTree:
+    mesh, names = _group(axis_name)
+    return tree_map(lambda a: mesh.ranks.combine(a, names, op), x)
+
+
+def psum(x: PyTree, axis_name: Spec) -> PyTree:
+    """``lax.psum``: the sum over the group, added in group order."""
+    return _combined(x, axis_name, torch.add)
+
+
+def pmax(x: PyTree, axis_name: Spec) -> PyTree:
+    """``lax.pmax``: the elementwise maximum over the group."""
+    return _combined(x, axis_name, torch.maximum)
+
+
+def pmean(x: PyTree, axis_name: Spec) -> PyTree:
+    """``lax.pmean``: :func:`psum` over the group's size."""
+    mesh, names = _group(axis_name)
+    p = int(np.prod([mesh.shape[mesh.axis(n)] for n in names]))
+    return tree_map(lambda a: a / p, psum(x, axis_name))
+
+
+def all_to_all(x: torch.Tensor, axis_name: Spec, split_axis: int,
+               concat_axis: int, *, tiled: bool = True) -> torch.Tensor:
+    """``lax.all_to_all(..., tiled=True)``: dim ``split_axis`` splits into
+    ``p`` blocks, block ``i`` goes to group member ``i``, and the blocks a
+    member receives are concatenated along ``concat_axis`` in source order.
+    Both axes count the dims of the value as the region holds it, its
+    leading rank rows included (so never 0 inside :func:`block_shard_map`).
+    Only the tiled form is ported."""
+    if not tiled:
+        raise NotImplementedError("all_to_all(tiled=False) is not ported")
+    mesh, names = _group(axis_name)
+    return mesh.ranks.all_to_all(x, names, split_axis, concat_axis)
+
+
+def region_rows(axis_name: str) -> int:
+    """``R``, the rank rows a :func:`block_shard_map` region's leaf carries
+    under ``axis_name``'s mesh: every rank co-resident, 1 in a process."""
+    return mesh_of(axis_name).ranks.rows
+
+
+def axis_index_rows(axis_name: str, ndim: int) -> torch.Tensor:
+    """:func:`axis_index` shaped to broadcast against a region's ``ndim``-d
+    leaves (their rank rows leading)."""
+    return axis_index(axis_name).reshape((-1,) + (1,) * (ndim - 1))
+
+
+def _with_specs(fn: Callable, specs, tree) -> PyTree:
+    """``fn(leaf, spec)`` over ``tree``; ``specs`` is a :class:`P` for the
+    whole subtree, or a dict / tuple / list mirroring it."""
+    if tree is None:
+        return None
+    if isinstance(specs, P):
+        return tree_map(lambda a: fn(a, specs), tree)
+    if isinstance(specs, dict):
+        return {k: _with_specs(fn, specs[k], v) for k, v in tree.items()}
+    if isinstance(specs, (tuple, list)):
+        if len(specs) != len(tree):
+            raise ValueError(f"{len(specs)} specs for {len(tree)} values")
+        return type(tree)(_with_specs(fn, s, t) for s, t in zip(specs, tree))
+    raise TypeError(f"a spec is a P or a dict/tuple/list of them, got {specs!r}")
+
+
+def block_shard_map(
+    fn: Callable[..., PyTree],
+    mesh: Mesh,
+    in_specs: Sequence[Any],
+    out_specs: Any,
+) -> Callable[..., PyTree]:
+    """The reference's ``shard_map(fn, mesh, in_specs, out_specs,
+    check_vma=False)`` over block specs (:class:`P`).
+
+    Each argument is a global value on ``mesh``'s device (in every process
+    of a process group); ``in_specs`` has one entry per argument, a
+    :class:`P` for all its leaves or a dict / tuple / list of them; a
+    ``None`` argument passes through. Each named dim splits into one block
+    per coordinate of its axes, first name major. ``fn`` sees every leaf as
+    ``(R, *block)`` rank rows (:func:`region_rows`), a replicated leaf as a
+    stride-0 ``expand``, with the mesh's axis names bound. Each output leaf
+    is joined back by ``out_specs``: the blocks of every named axis in
+    place, the row of coordinate 0 along every axis the spec leaves
+    unnamed (equal on every rank after a psum, as ``check_vma=False``
+    assumes)."""
+    in_specs = tuple(in_specs)
+    ranks = mesh.ranks
+
+    def enter(a: torch.Tensor, spec: P) -> torch.Tensor:
+        if a.device != mesh.device:
+            raise ValueError(f"a value on {a.device} for a mesh on "
+                             f"{mesh.device}")
+        return ranks.split_blocks(a, _spec_dims(mesh, spec, a.shape))
+
+    def leave(a: torch.Tensor, spec: P) -> torch.Tensor:
+        return ranks.join_blocks(a, _spec_dims(mesh, spec, a.shape[1:], False))
+
+    def run(*args: PyTree) -> PyTree:
+        if len(args) != len(in_specs):
+            raise ValueError(f"{len(args)} arguments for {len(in_specs)} "
+                             "in_specs")
+        local = [_with_specs(enter, s, a) for s, a in zip(in_specs, args)]
+        stack = _stack()
+        stack.append(mesh)
+        try:
+            out = fn(*local)
+        finally:
+            stack.pop()
+        return _with_specs(leave, out_specs, out)
 
     return run

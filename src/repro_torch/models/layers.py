@@ -9,13 +9,16 @@ reference's names and take a module where the reference takes a dict.
 
 Differences from the reference:
 
-* only the null topology is served (:mod:`repro_torch.sharding`): the
-  explicit-TP regions and sequence-sharded decode attention raise
-  ``NotImplementedError`` rather than run the local path in their place;
+* under a mesh (:mod:`repro_torch.sharding`) the regions the reference runs
+  in ``shard_map`` (explicit TP, sequence-sharded decode attention) run in
+  :func:`repro_torch.compat.block_shard_map`; its placement constraints
+  (``shard``) are the identity, so the mesh branches that are constraints
+  only compute the local path;
 * ``flash_attention`` is the reference's own blocked attention in plain
   PyTorch (the reference computes it in jnp, outside any Pallas kernel),
   with its blocks, its ``-1e30`` mask fill and its ``1e-30`` clamp. Without
   a gradient its per-block ``jax.checkpoint`` does nothing and is left out;
+  its ``seq_shard`` only places query blocks and is left out too;
 * ``torch.einsum`` takes one dtype, so :func:`einsum` promotes its operands
   as ``jnp.einsum`` does; ``preferred_element_type=float32`` becomes an
   einsum of float32 operands (a product of two bf16 values is exact in
@@ -34,8 +37,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch import perf_flags
-from repro_torch.sharding import current_topology, require_local
+from repro_torch import compat, perf_flags
+from repro_torch.compat import P
+from repro_torch.sharding import current_topology
 
 Device = Union[torch.device, str]
 
@@ -292,7 +296,7 @@ def flash_attention(
 
     def block(qb, qpos, kb, vb, kpos, kval):
         # qb: (B, q_block, Kh, G, D); kb/vb: (B, kv_block, Kh, D)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb).float()
+        s = einsum("bqhgd,bkhd->bhgqk", qb, kb).float()
         mask = kval[None, None, None, None, :]
         if causal is not None and causal:
             mask = mask & (qpos[:, None] >= kpos[None, :])[None, None, None]
@@ -304,7 +308,7 @@ def flash_attention(
         if probs_bf16:
             o = einsum_f32("bhgqk,bkhd->bhgqd", probs.bfloat16(), vb.bfloat16())
         else:
-            o = torch.einsum("bhgqk,bkhd->bhgqd", probs, vb.float())
+            o = einsum("bhgqk,bkhd->bhgqd", probs, vb.float())
         return m, l, o
 
     outs = []
@@ -339,12 +343,19 @@ def attention_block(
     positions3: Optional[torch.Tensor] = None,
     return_kv: bool = False,
 ):
-    """Full-sequence attention (train / prefill).
+    """Full-sequence attention (train / prefill). Under a mesh with the
+    ``explicit_tp`` flag the projections run head-sharded with an owned
+    psum; otherwise the reference's mesh branches only place data.
 
     With return_kv=True also returns the (roped-k, v) pair for decode caches.
     """
-    require_local("attention_block")
-    q, k, v = _qkv(p, x, xkv)
+    topo = current_topology()
+    explicit = (not perf_flags.FLAGS.attn_seq_over_tp
+                and _tp_ready(topo, cfg.num_heads))
+    if explicit:
+        q, k, v = explicit_tp_qkv(p, x, xkv, topo)
+    else:
+        q, k, v = _qkv(p, x, xkv)
     if xkv is None:  # self-attention: rotate both q and k
         if positions3 is not None and cfg.mrope:
             q = apply_mrope(q, positions3, cfg.rope_theta)
@@ -356,7 +367,10 @@ def attention_block(
         q, k, v, causal=causal, window=window,
         kv_block=perf_flags.FLAGS.attn_kv_block,
     )
-    out = tp_out_einsum("bshk,hkd->bsd", out, p.wo)
+    if explicit:
+        out = explicit_tp_wo(out, p.wo, topo)
+    else:
+        out = tp_out_einsum("bshk,hkd->bsd", out, p.wo)
     if return_kv:
         return out, (k, v)
     return out
@@ -448,7 +462,9 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, dtype: torch.dtype,
 
 
 def mlp_block(p: MLP, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    require_local("mlp_block")
+    topo = current_topology()
+    if _tp_ready(topo, p.w_in.shape[-1]):
+        return explicit_tp_mlp(p, x, act, topo)
     a = _ACT[act]
     h = tp_out_einsum("bsd,df->bsf", x, p.w_in)
     if p.w_gate is not None:
@@ -460,19 +476,200 @@ def mlp_block(p: MLP, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 
 
 def decode_kv_mode(cfg) -> str:
-    """Cache layout for decode: 'local' off-mesh, the only layout this port
-    serves ('heads' and 'seq' are mesh layouts)."""
+    """Cache layout for decode: 'heads' when kv heads divide the model axis,
+    'seq' (sequence-sharded cache + LSE psum merge) otherwise, 'local'
+    off-mesh."""
     topo = current_topology()
     if topo.mesh is None or topo.model_size <= 1:
         return "local"
     return "heads" if cfg.num_kv_heads % topo.model_size == 0 else "seq"
 
 
+def seq_sharded_decode_attention_core(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_len: int,
+    cfg,
+    *,
+    axis_name: str,
+    window: int = 0,
+):
+    """Decode attention with the KV cache sharded along SEQUENCE over
+    ``axis_name``, inside a :func:`~repro_torch.compat.block_shard_map`
+    region: every leaf carries ``R`` rank rows. q: (R, B, 1, H, D), k / v:
+    (R, B, 1, Kh, D), the caches (R, B, S_shard, Kh, D).
+
+    The owner shard writes the new token; each shard scores its cache
+    shard, and the partial (m, l, o) triplets merge with the associative
+    flash combine through pmax / psum, the same operator algebra as the
+    scan collective. Returns the merged per-head outputs (R, B, 1, H, D)
+    and the caches; the wo projection happens outside."""
+    R, B, S_shard, Kh, D = k_cache.shape
+    dev = k_cache.device
+    idx = compat.axis_index_rows(axis_name, 2).to(torch.int64)   # (R, 1)
+    # the owner shard writes the new kv at its offset, as the reference's
+    # dynamic_update_slice under where(owner, ...)
+    local_start = idx * S_shard
+    kpos = local_start + torch.arange(S_shard, device=dev)      # (R, S)
+    write = (kpos == cache_len)[:, None, :, None, None]
+    k_cache = torch.where(write, k.to(k_cache.dtype), k_cache)
+    v_cache = torch.where(write, v.to(v_cache.dtype), v_cache)
+
+    H = cfg.num_heads
+    G = H // Kh
+    scale = 1.0 / math.sqrt(D)
+    qh = (q * scale).reshape(R, B, Kh, G, D)
+    s = einsum_f32("rbhgd,rbshd->rbhgs", qh, k_cache)
+    valid = (kpos <= cache_len) & _window_mask(cache_len - kpos, int(window))
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    m = torch.amax(s, dim=-1)
+    probs = torch.exp(s - m[..., None])
+    l = torch.sum(probs, dim=-1)
+    o = einsum_f32("rbhgs,rbshd->rbhgd", probs.to(v_cache.dtype), v_cache)
+    # associative flash merge across shards
+    mg = compat.pmax(m, axis_name)
+    c = torch.exp(m - mg)
+    lg = compat.psum(l * c, axis_name)
+    og = compat.psum(o * c[..., None], axis_name)
+    o = (og / torch.clamp(lg, min=1e-30)[..., None]).reshape(R, B, 1, H, D)
+    return o.to(q.dtype), k_cache, v_cache
+
+
 def cached_attention(p, x, kc, vc, cache_len, cfg, *, window=0, kv_mode="local"):
-    """One-token attention against a KV cache, dispatching on cache layout
-    (the ``"local"`` layout only)."""
-    if kv_mode != "local":
-        raise NotImplementedError(
-            f"cached_attention(kv_mode={kv_mode!r}) is a mesh layout; only "
-            "'local' is ported")
-    return decode_attention(p, x, kc, vc, cache_len, cfg, window=window)
+    """One-token attention against a KV cache, dispatching on cache layout:
+    'seq' runs the sequence-sharded region; 'heads' and 'local' run
+    :func:`decode_attention` (a 'heads' cache only places heads)."""
+    if kv_mode != "seq":
+        return decode_attention(p, x, kc, vc, cache_len, cfg, window=window)
+    topo = current_topology()
+    axis = topo.model_axis
+    dp = topo.batch_axes
+    B = x.shape[0]
+    cache_len = int(cache_len)
+    dpspec = dp[0] if len(dp) == 1 else dp
+    bspec = dpspec if (B % topo.dp_size == 0 and B > 1) else None
+    q, k, v = _qkv(p, x)
+    pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+
+    def region(q, k, v, kc, vc):
+        return seq_sharded_decode_attention_core(
+            q, k, v, kc, vc, cache_len, cfg, axis_name=axis, window=window)
+
+    cspec = P(bspec, axis, None, None)
+    rspec = P(bspec, None, None, None)
+    o, kc, vc = compat.block_shard_map(
+        region, topo.mesh,
+        in_specs=(rspec, rspec, rspec, cspec, cspec),
+        out_specs=(rspec, cspec, cspec),
+    )(q, k, v, kc, vc)
+    out = einsum("bshk,hkd->bsd", o, p.wo)
+    return out, kc, vc
+
+
+# ---------------------------------------------------------------------------
+# Explicit-TP projections (perf flag: explicit_tp)
+#
+# The reference runs these projections inside shard_map so that each TP
+# psum is one the model owns, cast to the activation dtype before it
+# reduces. Here they run in block_shard_map regions over (R, ...) rows, the
+# weights block-sharded along the model axis.
+# ---------------------------------------------------------------------------
+
+
+def _tp_ready(topo, *dims) -> bool:
+    return (
+        perf_flags.FLAGS.explicit_tp
+        and topo.mesh is not None
+        and topo.model_size > 1
+        and all(d % topo.model_size == 0 for d in dims)
+    )
+
+
+def _batch_spec_entry(topo, batch_dim: int):
+    """DP sharding entry for a batch dim, or None when it can't shard."""
+    if batch_dim % max(topo.dp_size, 1) != 0 or batch_dim <= 1:
+        return None
+    dp = topo.batch_axes
+    return dp[0] if len(dp) == 1 else dp
+
+
+def explicit_tp_mlp(p: MLP, x: torch.Tensor, act: str, topo) -> torch.Tensor:
+    """Gated MLP with explicit ff-sharded compute + an owned psum in the
+    activation dtype."""
+    axis = topo.model_axis
+    dpspec = _batch_spec_entry(topo, x.shape[0])
+    a = _ACT[act]
+
+    def region(x_l, w_in, w_gate, w_out):
+        h = einsum("rbsd,rdf->rbsf", x_l, w_in)
+        if w_gate is not None:
+            h = a(einsum("rbsd,rdf->rbsf", x_l, w_gate)) * h
+        else:
+            h = a(h)
+        out = einsum("rbsf,rfd->rbsd", h, w_out)
+        return compat.psum(out.to(x_l.dtype), axis)
+
+    xspec = P(dpspec, None, None)
+    wspec = P(None, axis)
+    return compat.block_shard_map(
+        region, topo.mesh,
+        in_specs=(xspec, wspec, wspec, P(axis, None)), out_specs=xspec,
+    )(x, p.w_in, p.w_gate, p.w_out)
+
+
+def explicit_tp_qkv(p: Attention, x: torch.Tensor,
+                    xkv: Optional[torch.Tensor], topo):
+    """Head-sharded q/k/v projections in a region (k / v replicated when
+    the kv heads do not divide the model axis)."""
+    axis = topo.model_axis
+    msize = topo.model_size
+    dpspec = _batch_spec_entry(topo, x.shape[0])
+    kv_sharded = p.wk.shape[1] % msize == 0
+
+    def region(x_l, xkv_l, wq, wk, wv, bq, bk, bv):
+        q = einsum("rbsd,rdhk->rbshk", x_l, wq)
+        k = einsum("rbsd,rdhk->rbshk", xkv_l, wk)
+        v = einsum("rbsd,rdhk->rbshk", xkv_l, wv)
+        if bq is not None:
+            q = q + bq[:, None, None]
+            k = k + bk[:, None, None]
+            v = v + bv[:, None, None]
+        return q, k, v
+
+    xspec = P(dpspec, None, None)
+    hspec = P(None, axis, None)
+    kvspec = hspec if kv_sharded else P(None, None, None)
+    hbspec = P(axis, None)
+    kvbspec = hbspec if kv_sharded else P(None, None)
+    out_h = P(dpspec, None, axis, None)
+    out_kv = out_h if kv_sharded else P(dpspec, None, None, None)
+    return compat.block_shard_map(
+        region, topo.mesh,
+        in_specs=(xspec, xspec, hspec, kvspec, kvspec, hbspec, kvbspec,
+                  kvbspec),
+        out_specs=(out_h, out_kv, out_kv),
+    )(x, x if xkv is None else xkv, p.wq, p.wk, p.wv, p.bq, p.bk, p.bv)
+
+
+def explicit_tp_wo(out_heads: torch.Tensor, wo: torch.Tensor,
+                   topo) -> torch.Tensor:
+    """Out-projection contraction over sharded heads with an owned psum in
+    the activation dtype."""
+    axis = topo.model_axis
+    dpspec = _batch_spec_entry(topo, out_heads.shape[0])
+
+    def region(o_l, w_l):
+        r = einsum("rbshk,rhkd->rbsd", o_l, w_l)
+        return compat.psum(r.to(o_l.dtype), axis)
+
+    return compat.block_shard_map(
+        region, topo.mesh,
+        in_specs=(P(dpspec, None, axis, None), P(axis, None, None)),
+        out_specs=P(dpspec, None, None),
+    )(out_heads, wo)

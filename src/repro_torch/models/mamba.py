@@ -1,4 +1,5 @@
-"""Mamba2 (SSD) mixer (port of ``repro.models.mamba``, its local path).
+"""Mamba2 (SSD) mixer with the sequence-parallel inter-chunk scan (port of
+``repro.models.mamba``).
 
 The chunked SSD of arXiv:2405.21060, as the reference computes it:
 
@@ -14,9 +15,19 @@ The chunked SSD of arXiv:2405.21060, as the reference computes it:
 
 Projections are stored per segment (z, x, BC, dt), as in the reference.
 
-Only the local mixer is ported: the sequence-parallel mode (the paper's
-``dist_exscan`` with the SSD operator inside ``shard_map``) and the
-head-sharded TP mode need a mesh and raise (the next slice).
+Modes, as in the reference:
+
+* ``seq_parallel=True`` under a mesh (mamba2-130m): the sequence is sharded
+  over the model axis inside :func:`repro_torch.compat.block_shard_map`.
+  The conv halo is one neighbour ``ppermute`` (rank 0's zero fill is the
+  causal padding), and the inter-chunk state crosses shards through the
+  paper's scan collective, ``dist_exscan`` with the SSD operator over
+  ``SpmdBackend``. Each shard's chunked SSD runs its segment scan on K3:
+  the region folds its rank rows into the batch, so co-resident shards
+  share one launch a layer;
+* otherwise the full sequence per rank; under a mesh the reference shards
+  heads (jamba's TP mode) with placement constraints only, which the port
+  computes as the local mixer (``sharding.shard`` is the identity).
 """
 
 from __future__ import annotations
@@ -28,10 +39,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch import perf_flags
+from repro_torch import compat, perf_flags
+from repro_torch.compat import P
+from repro_torch.core import SSD, dist_exscan
+from repro_torch.core.trees import tree_map
 from repro_torch.kernels.ops import prefix_scan
 from repro_torch.models.layers import const, einsum, param
-from repro_torch.sharding import require_local
+from repro_torch.sharding import current_topology, shard
 
 _CONV_WIDTH = 4
 
@@ -177,7 +191,7 @@ def _ssd_chunked(
 
 
 def _project(p: MambaMixer, x: torch.Tensor, cfg,
-             halo_x: Optional[torch.Tensor]):
+             halo_x: Optional[torch.Tensor], tp: bool):
     """proj + conv. Returns (z, xs, Bc, Cc, dtp, dA, tails). ``halo_x``
     (B, 3, d) is the left context a sequence shard receives; None is the
     causal zero padding."""
@@ -188,6 +202,10 @@ def _project(p: MambaMixer, x: torch.Tensor, cfg,
     x_in = einsum("bsd,de->bse", x, p.w_x)
     bc = einsum("bsd,de->bse", x, p.w_bc)
     dt = einsum("bsd,de->bse", x, p.w_dt)
+    if tp:
+        z = shard(z, "batch", None, "model")
+        x_in = shard(x_in, "batch", None, "model")
+        dt = shard(dt, "batch", None, "heads")
 
     halo_xin = halo_bc = None
     if halo_x is not None:
@@ -204,25 +222,71 @@ def _project(p: MambaMixer, x: torch.Tensor, cfg,
     return z, xs, Bc, Cc, dtp, dA, tails
 
 
-def _mixer_core(p: MambaMixer, x: torch.Tensor, cfg, halo_x, state_in):
-    """The reference's mixer body, its local branch (no sequence axis, no
-    head sharding)."""
+def _mixer_core(p: MambaMixer, x: torch.Tensor, cfg, halo_x, state_in,
+                seq_axis: Optional[str], tp: bool):
+    """The reference's mixer body. With ``seq_axis`` it runs inside a
+    :func:`~repro_torch.compat.block_shard_map` region whose ``R`` rank rows
+    are folded into ``x``'s batch (``R * B`` rows): the collectives see
+    them unfolded, as ``(R, B, ...)``."""
     B, S, _ = x.shape
     di = cfg.ssm_d_inner
+    H, Pd = cfg.ssm_num_heads, cfg.ssm_head_dim
     chunk = perf_flags.FLAGS.ssm_chunk or cfg.ssm_chunk
-    z, xs, Bc, Cc, dtp, dA, tails = _project(p, x, cfg, halo_x)
-    y, (A_tot, S_tot), _ = _ssd_chunked(
-        xs, Bc, Cc, dA, dtp, chunk, state_in=state_in
-    )
+    z, xs, Bc, Cc, dtp, dA, tails = _project(p, x, cfg, halo_x, tp)
+
+    if seq_axis is not None:
+        y, (A_tot, S_tot), (Ccc, seg, A_exc) = _ssd_chunked(
+            xs, Bc, Cc, dA, dtp, chunk
+        )
+        R = compat.region_rows(seq_axis)
+
+        def ranked(a):
+            return a.reshape((R, B // R) + a.shape[1:])
+
+        # cross-shard incoming state via the offloaded scan collective
+        payload = (ranked(A_tot[..., None, None]), ranked(S_tot))
+        if perf_flags.FLAGS.scan_payload_bf16:
+            payload = tree_map(lambda t: t.bfloat16(), payload)
+        a_in, s_in = dist_exscan(
+            payload, SSD, seq_axis,
+            algorithm=perf_flags.FLAGS.scan_algorithm,
+        )
+        a_in = a_in[..., 0, 0].reshape(A_tot.shape).to(A_tot.dtype)   # (B,H)
+        s_in = s_in.reshape(S_tot.shape).to(S_tot.dtype)
+        y_add = einsum(
+            "bcin,bch,bhpn->bcihp", Ccc, A_exc, s_in
+        ) * torch.exp(seg)[..., None]
+        y = y + y_add.reshape(B, S, H, Pd)
+        S_tot = A_tot[..., None, None] * s_in + S_tot
+        A_tot = A_tot * a_in
+    else:
+        y, (A_tot, S_tot), _ = _ssd_chunked(
+            xs, Bc, Cc, dA, dtp, chunk, state_in=state_in
+        )
+
     y = y + p.D[None, None, :, None].to(y.dtype) * xs.to(y.dtype)
     y = y.reshape(B, S, di)
     y = _gated_rmsnorm(p.norm_scale, y.to(x.dtype), z)
     out = einsum("bse,ed->bsd", y, p.w_out).to(x.dtype)
+    if tp:
+        out = shard(out, "batch", None, None)
     cache = {
         "ssm": S_tot.float(),
         "conv_x": tails[0],
         "conv_bc": tails[1],
     }
+    if seq_axis is not None:
+        # the decode cache is global: take the LAST sequence shard's values
+        psize = compat.axis_size(seq_axis)
+
+        def from_last(a):
+            a = ranked(a)
+            last = compat.axis_index_rows(seq_axis, a.ndim) == psize - 1
+            kept = compat.psum(torch.where(last, a, torch.zeros_like(a)),
+                               seq_axis)
+            return kept.reshape((B,) + a.shape[2:])
+
+        cache = tree_map(from_last, cache)
     return out, cache
 
 
@@ -237,11 +301,48 @@ def mamba_mixer(
     """Full-sequence SSD mixer (train / prefill).
 
     Returns (y, cache) where cache = {ssm, conv_x, conv_bc} is decode-ready
-    (the final SSD state and the conv-input tails). Without a mesh the
-    reference runs the local mixer whatever ``seq_parallel`` says; so does
-    the port, which serves no mesh."""
-    require_local("mamba_mixer")
-    return _mixer_core(p, x, cfg, None, state_in)
+    (the final SSD state and the conv-input tails)."""
+    topo = current_topology()
+    B, S, _ = x.shape
+    sp_ok = (
+        seq_parallel
+        and topo.mesh is not None
+        and topo.model_size > 1
+        and S % topo.model_size == 0
+        and (S // topo.model_size) >= _CONV_WIDTH
+    )
+    if not sp_ok:
+        tp = topo.mesh is not None and not seq_parallel
+        return _mixer_core(p, x, cfg, None, state_in, None, tp)
+
+    axis = topo.model_axis
+    dp = topo.batch_axes
+    dpspec = dp[0] if len(dp) == 1 else dp
+    x_spec = P(dpspec, axis, None)
+
+    def region(x_l):
+        # conv halo: last 3 raw tokens from the left sequence shard (rank 0
+        # receives ppermute zero-fill == causal zero padding)
+        R, Bl, Sl, d = x_l.shape
+        psize = compat.axis_size(axis)
+        tail = x_l[:, :, -(_CONV_WIDTH - 1):, :]
+        halo_x = compat.ppermute(
+            tail, axis, [(i, i + 1) for i in range(psize - 1)])
+        out, cache = _mixer_core(
+            p, x_l.reshape(R * Bl, Sl, d), cfg,
+            halo_x.reshape(R * Bl, _CONV_WIDTH - 1, d), None, axis, False)
+        return (out.reshape(R, Bl, Sl, d),
+                tree_map(lambda a: a.reshape((R, Bl) + a.shape[1:]), cache))
+
+    cache_specs = {
+        "ssm": P(dpspec, None, None, None),
+        "conv_x": P(dpspec, None, None),
+        "conv_bc": P(dpspec, None, None),
+    }
+    mapped = compat.block_shard_map(
+        region, topo.mesh, in_specs=(x_spec,), out_specs=(x_spec, cache_specs),
+    )
+    return mapped(x)
 
 
 def init_mamba_state(cfg, batch: int, dtype=torch.float32, device="cpu"):

@@ -1,29 +1,43 @@
-"""Mixture-of-Experts FFN (port of ``repro.models.moe``, its dense path).
+"""Mixture-of-Experts FFN with expert-parallel (EP) dispatch (port of
+``repro.models.moe``).
+
+Under a mesh whose model axis divides the experts, ``moe_block`` runs the
+reference's EP region inside :func:`repro_torch.compat.block_shard_map`,
+experts sharded over the model axis. Dispatch is sort-based with static
+capacity: router top-k -> counts -> the *exclusive prefix scan* for the
+per-expert offsets (the paper's primitive: ``ops.prefix_scan``, K3 on a
+CUDA tensor, one launch for every co-resident rank's counts) -> the slots
+of an (E, C, d) buffer -> ``all_to_all`` -> expert FFN -> ``all_to_all``
+back -> the weighted combine, a sum over the k picks taken in order.
 
 ``_dense_moe`` is the reference's dropless path: every expert sees every
-token, masked by the router's top-k combine weights. It is what the
-reference runs without a mesh, and what the port runs.
+token, masked by the router's top-k combine weights. It runs without a
+mesh, on one rank, and when the experts do not divide the model axis.
 
-The expert-parallel region (sort-based dispatch whose per-expert offsets
-are the paper's exclusive prefix scan, then ``all_to_all`` both ways) needs
-a mesh: ``moe_block`` raises under one (the next slice of the port).
+The aux losses of the EP region are globally exact: the sufficient
+statistics are pmean'd over (dp..., model) first.
 
 ``lax.top_k`` becomes ``torch.topk``. Their order among tied
 probabilities may differ; the parity tests use inputs whose router
-probabilities have no tie at the top-k boundary.
+probabilities have no tie at the top-k boundary. ``jnp.argsort`` is stable
+and so is the port's.
 """
 
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import compat
+from repro_torch.compat import P
+from repro_torch.kernels.ops import prefix_scan
 from repro_torch.models.layers import _ACT, MLP, einsum, param
-from repro_torch.sharding import current_topology, require_local
+from repro_torch.sharding import current_topology
 
 
 class MoE(nn.Module):
@@ -116,9 +130,115 @@ def _dense_moe(p: MoE, x: torch.Tensor, cfg, act: str):
     return out, {"load_balance": lb, "router_z": z}
 
 
+def _ep_region(x, router, w_in, w_gate, w_out, *, cfg, act, axis, dp_axes):
+    """Per-rank EP dispatch over ``R`` rank rows. x: (R, B_loc, S_loc, d);
+    router (R, d, E); experts sharded, (R, E_loc, ...)."""
+    R, B, S, d = x.shape
+    n = B * S
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+    C = int(math.ceil(n * k / E * cfg.capacity_factor))
+    # round capacity to a lane multiple, as the reference does
+    C = max(8, -(-C // 8) * 8)
+    dev = x.device
+
+    xf = x.reshape(R, n, d)
+    logits = (xf.float() @ router).float()
+    gates, experts, probs = _router(logits, k)
+    # globally-exact aux stats: pmean the sufficient statistics FIRST
+    axes = tuple(dp_axes) + (axis,)
+    onehot = F.one_hot(experts, E).float()            # (R, n, k, E)
+    frac_tokens = compat.pmean(onehot.sum((1, 2)) / (n * k), axes)
+    frac_probs = compat.pmean(probs.mean(1), axes)
+    lb = E * torch.sum(frac_tokens * frac_probs, dim=-1)
+    z = compat.pmean(
+        torch.mean(torch.square(torch.logsumexp(logits, dim=-1)), dim=-1), axes
+    )
+
+    flat_e = experts.reshape(R, -1)                   # (R, nk)
+    flat_g = gates.reshape(R, -1).to(x.dtype)
+    nk = n * k
+    counts = F.one_hot(flat_e, E).sum(1).to(torch.int32)   # (R, E)
+    # per-expert offsets: THE PAPER'S PRIMITIVE -- exclusive prefix scan
+    starts = prefix_scan(counts, op="add", exclusive=True)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    pos_sorted = (torch.arange(nk, dtype=torch.int32, device=dev)
+                  - torch.gather(starts, 1, torch.gather(flat_e, 1, order)))
+    pos = torch.zeros((R, nk), dtype=torch.int32, device=dev).scatter(
+        1, order, pos_sorted)
+
+    tok = torch.arange(n, device=dev).repeat_interleave(k)
+    slot = torch.where(pos < C, flat_e * C + pos, E * C)   # OOB -> dropped
+    rows = torch.arange(R, device=dev)[:, None]
+    # one spare row past the buffer takes every dropped token
+    buf = torch.zeros((R, E * C + 1, d), dtype=x.dtype, device=dev)
+    buf[rows, slot] = xf[:, tok]
+    # all_to_all: expert-group i goes to rank i; my experts' tokens arrive
+    # concatenated along capacity: (E, C, d) -> (E_loc, ep*C, d)
+    buf = buf[:, :E * C].reshape(R, E, C, d)
+    buf = compat.all_to_all(buf, axis, split_axis=1, concat_axis=2)
+    E_loc = buf.shape[1]
+
+    def fold(w):
+        return None if w is None else w.reshape((R * E_loc,) + w.shape[2:])
+
+    out = _expert_ffn(
+        SimpleNamespace(w_in=fold(w_in), w_gate=fold(w_gate), w_out=fold(w_out)),
+        buf.reshape((R * E_loc,) + buf.shape[2:]), act)
+
+    # reverse: (E_loc, ep*C, d) -> (E, C, d)
+    out = out.reshape((R, E_loc) + out.shape[1:])
+    out = compat.all_to_all(out, axis, split_axis=2, concat_axis=1)
+    out = torch.cat([out.reshape(R, E * C, d),
+                     torch.zeros((R, 1, d), dtype=out.dtype, device=dev)], 1)
+    got = out[rows, slot] * flat_g[..., None]         # (R, nk, d)
+    # the reference's scatter-add over tok = repeat(arange(n), k): each
+    # token's k picks, added in order
+    got = got.reshape(R, n, k, d)
+    y = torch.zeros((R, n, d), dtype=x.dtype, device=dev)
+    for j in range(k):
+        y = y + got[:, :, j]
+    return y.reshape(R, B, S, d), lb, z
+
+
+def token_spec(topo, B: int, S: int) -> P:
+    """How the EP region splits (B, S, d) tokens: batch over dp; sequence
+    over the model axis (SP) when it divides, else the model axis folded
+    into the batch (decode), else batch over dp only, else replicated."""
+    dp = topo.batch_axes
+    dpspec = dp[0] if len(dp) == 1 else dp
+    ep, dp_size = topo.model_size, topo.dp_size
+    if S % ep == 0 and B % dp_size == 0:
+        return P(dpspec, topo.model_axis, None)
+    if B % (dp_size * ep) == 0:
+        return P(tuple(dp) + (topo.model_axis,), None, None)
+    if B % dp_size == 0:
+        return P(dpspec, None, None)
+    return P(None, None, None)
+
+
 def moe_block(p: MoE, x: torch.Tensor, cfg, *, act: str = "silu"):
-    """Top-level MoE FFN: the dense path without a mesh; the expert-parallel
-    region under one is not ported and raises."""
-    if current_topology().mesh is not None:
-        require_local("moe_block's expert-parallel region")
-    return _dense_moe(p, x, cfg, act)
+    """Top-level MoE FFN. Chooses EP (a block_shard_map region) or the dense
+    fallback."""
+    topo = current_topology()
+    E = cfg.moe_num_experts
+    ep = topo.model_size
+    if topo.mesh is None or ep == 1 or E % ep != 0:
+        return _dense_moe(p, x, cfg, act)
+
+    axis = topo.model_axis
+    dp = topo.batch_axes
+    x_spec = token_spec(topo, *x.shape[:2])
+
+    def region(x_l, router, w_in, w_gate, w_out):
+        return _ep_region(x_l, router, w_in, w_gate, w_out, cfg=cfg, act=act,
+                          axis=axis, dp_axes=dp)
+
+    w_spec = P(axis, None, None)
+    y, lb, z = compat.block_shard_map(
+        region, topo.mesh,
+        in_specs=(x_spec, P(None, None), w_spec, w_spec, w_spec),
+        out_specs=(x_spec, P(), P()),
+    )(x, p.router, p.w_in, p.w_gate, p.w_out)
+    if p.shared is not None:
+        y = y + _shared_ffn(p.shared, x, act)
+    return y, {"load_balance": lb, "router_z": z}

@@ -170,6 +170,17 @@ def parse_device_us(
     return _interval_union_us(intervals), len(intervals)
 
 
+def _prime(device: "torch.device | str") -> None:
+    """One untimed launch, waited for, before the annotated window: after
+    a process's earlier profiler sessions over the serving path, the first
+    kernel launched in a new session was slow to launch and left no device
+    record (seen on an H100; ``chip_smoke.py``'s ``profile`` phase reports
+    that launch), which emptied a window whose dispatch launched one
+    kernel. The primer takes that loss outside the window."""
+    torch.ones(1, device=device).add_(1)
+    torch.cuda.synchronize(device)
+
+
 def profile_call(
     call: Callable[[], PyTree],
     tag: str,
@@ -208,6 +219,8 @@ def profile_call(
         except RuntimeError:
             prof = None
             fallback_reason = "trace_start_failed"
+        if prof is not None and torch.device(device).type == "cuda":
+            _prime(device)
         t0 = time.perf_counter()
         t0_us = obs_tracing.now_us()
         try:

@@ -4,10 +4,9 @@ from repro_torch.sharding.specs import (
     Topology,
     current_topology,
     make_topology,
-    require_local,
     shard,
     use_topology,
 )
 
-__all__ = ["Topology", "current_topology", "make_topology", "require_local",
-           "shard", "use_topology"]
+__all__ = ["Topology", "current_topology", "make_topology", "shard",
+           "use_topology"]

@@ -8,14 +8,13 @@ where every annotation is a no-op.
 DP spans (pod, data); TP/EP/SP all live on the "model" axis, as in the
 reference.
 
-The port serves the null topology only. A :class:`Topology` over a
-:class:`repro_torch.compat.Mesh` can be built and translates specs, but
-entering it (:func:`use_topology`) raises ``NotImplementedError``: the model
-code's mesh paths (explicit TP, the expert-parallel MoE region, the
-sequence-parallel Mamba mixer, sequence-sharded decode attention) are the
-next slice of the port, and a meshed topology must never quietly run the
-local path in their place. A spec is a tuple of mesh-axis entries, the
-port's ``PartitionSpec``.
+A :class:`Topology` over a :class:`repro_torch.compat.Mesh` (either kind of
+rank group) is served: the model code's mesh paths run their regions
+through :func:`repro_torch.compat.block_shard_map`. :func:`shard`, a GSPMD
+placement constraint in the reference, is the identity in both: a value
+outside a region is the whole global tensor (compat's global-value
+contract), so a constraint that only places data changes nothing. A spec
+is a :class:`repro_torch.compat.P`, the port's ``PartitionSpec``.
 """
 
 from __future__ import annotations
@@ -23,22 +22,14 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
-#: what a meshed topology raises, naming where its paths come
-MESH_PATHS_PENDING = (
-    "the model code's mesh paths (explicit TP, the expert-parallel MoE "
-    "region, the sequence-parallel Mamba mixer and sequence-sharded decode "
-    "attention) are not ported yet: they are the next slice of the port "
-    "(ROADMAP item 12b); only the null topology (mesh=None) is served"
-)
-
-Spec = Tuple[Any, ...]
+from repro_torch.compat import Mesh, P
 
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    mesh: Optional[Any]
+    mesh: Optional[Mesh]
     batch_axes: Tuple[str, ...] = ("data",)   # DP axes (pod folded in)
     model_axis: Optional[str] = "model"       # TP / EP / SP axis
 
@@ -64,8 +55,8 @@ class Topology:
             n *= self._size(a)
         return n
 
-    def spec(self, *logical: Optional[str]) -> Spec:
-        """Translate logical axis names to a spec (a tuple of entries)."""
+    def spec(self, *logical: Optional[str]) -> P:
+        """Translate logical axis names to a block spec."""
         out = []
         for name in logical:
             if name is None:
@@ -76,7 +67,7 @@ class Topology:
                 out.append(self.model_axis)
             else:
                 raise ValueError(f"unknown logical axis {name!r}")
-        return tuple(out)
+        return P(*out)
 
 
 def _null_topology() -> Topology:
@@ -92,18 +83,11 @@ def current_topology() -> Topology:
     return _current.get()
 
 
-def require_local(what: str) -> None:
-    """Raise ``NotImplementedError`` when the current topology has a mesh:
-    ``what`` has only its local path in this port."""
-    if current_topology().mesh is not None:
-        raise NotImplementedError(f"{what}: {MESH_PATHS_PENDING}")
-
-
 @contextlib.contextmanager
 def use_topology(topo: Topology):
-    if topo.mesh is not None:
-        raise NotImplementedError(f"use_topology(mesh={topo.mesh!r}): "
-                                  f"{MESH_PATHS_PENDING}")
+    if topo.mesh is not None and not isinstance(topo.mesh, Mesh):
+        raise TypeError(f"a topology's mesh is a repro_torch.compat.Mesh, "
+                        f"got {type(topo.mesh).__name__}")
     token = _current.set(topo)
     try:
         yield topo
@@ -111,7 +95,7 @@ def use_topology(topo: Topology):
         _current.reset(token)
 
 
-def make_topology(mesh: Optional[Any]) -> Topology:
+def make_topology(mesh: Optional[Mesh]) -> Topology:
     if mesh is None:
         return _null_topology()
     names = mesh.axis_names
@@ -126,7 +110,6 @@ def make_topology(mesh: Optional[Any]) -> Topology:
 
 
 def shard(x, *logical: Optional[str]):
-    """A sharding constraint in logical axes: the identity without a mesh
-    (the only topology this port serves); raises under a mesh."""
-    require_local("shard")
+    """A sharding constraint in logical axes: the identity, with a mesh or
+    without (see the module docstring)."""
     return x

@@ -373,7 +373,12 @@ def _wire_dtype(name: str):
 # ---------------------------------------------------------------------------
 
 
-def _worker(suite: str, p: int, rank: int, workdir: Path) -> None:
+def gloo_worker(p: int, rank: int, workdir: Path,
+                body: Callable[[Callable], Dict[str, Any]]) -> None:
+    """One process of a :func:`spawn_gloo` run: join the gloo group through
+    the ``file://`` store under ``workdir``, call ``body(make_mesh)``
+    (``make_mesh(shape, names)`` builds a mesh over the whole group), and
+    save its results from rank 0."""
     import torch
     import torch.distributed as dist
 
@@ -385,21 +390,26 @@ def _worker(suite: str, p: int, rank: int, workdir: Path) -> None:
         rank=rank,
     )
     try:
-        results: Dict[str, Any] = {}
-        for case in SUITES[suite](p):
-            try:
-                results[case.name] = run_case(
-                    case,
-                    lambda shape, names: compat.Mesh(
-                        shape, names, device="cpu", group=dist.group.WORLD),
-                )
-            except Exception as exc:  # every rank raises alike: go on
-                results[case.name] = f"{type(exc).__name__}: {exc}"
+        results = body(lambda shape, names: compat.Mesh(
+            shape, names, device="cpu", group=dist.group.WORLD))
         if rank == 0:
             torch.save(results, workdir / "results.pt")
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def _worker(suite: str, p: int, rank: int, workdir: Path) -> None:
+    def body(make_mesh):
+        results: Dict[str, Any] = {}
+        for case in SUITES[suite](p):
+            try:
+                results[case.name] = run_case(case, make_mesh)
+            except Exception as exc:  # every rank raises alike: go on
+                results[case.name] = f"{type(exc).__name__}: {exc}"
+        return results
+
+    gloo_worker(p, rank, workdir, body)
 
 
 def run_gloo(suite: str, p: int, workdir: "str | Path", *,
@@ -408,8 +418,18 @@ def run_gloo(suite: str, p: int, workdir: "str | Path", *,
     group (a ``file://`` store under ``workdir``); returns rank 0's results
     (case name -> tuple of CPU tensors, or the error text). Every process is
     killed if the run outlasts ``timeout`` seconds, which raises."""
+    return spawn_gloo("repro_torch.testing.spmd_check", [suite], p, workdir,
+                      timeout=timeout)
+
+
+def spawn_gloo(module: str, args: List[str], p: int, workdir: "str | Path",
+               *, timeout: float = 120.0) -> Dict[str, Any]:
+    """``python -m module *args P WORKDIR RANK`` in ``p`` processes, each
+    killed if the spawn outlasts ``timeout`` seconds (which raises); returns
+    what rank 0 saved to ``WORKDIR/results.pt``."""
     import torch
 
+    suite = " ".join(args)
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     src = str(Path(__file__).resolve().parents[2])
@@ -418,8 +438,8 @@ def run_gloo(suite: str, p: int, workdir: "str | Path", *,
     env["OMP_NUM_THREADS"] = "1"
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.testing.spmd_check", suite,
-             str(p), str(workdir), str(rank)],
+            [sys.executable, "-m", module, *args, str(p), str(workdir),
+             str(rank)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True,
         )
@@ -438,7 +458,7 @@ def run_gloo(suite: str, p: int, workdir: "str | Path", *,
         for proc in procs:
             proc.communicate()
         raise TimeoutError(
-            f"gloo run of suite {suite!r} at p={p} outlasted {timeout} s"
+            f"gloo run of {module} {suite} at p={p} outlasted {timeout} s"
         ) from None
     bad = [(r, proc.returncode) for r, proc in enumerate(procs)
            if proc.returncode != 0]

@@ -5,7 +5,8 @@ Pairs: ``repro_torch.models.{layers,mamba,moe}`` vs
 ``state_in`` (its segment scan also against the reference's Pallas kernel
 in interpret mode), the Mamba mixer and ``mamba_decode``, the blocked
 ``flash_attention`` with windows, offsets and ``attn_probs_bf16``,
-``decode_attention`` and ``_expert_ffn``. Float32, inputs from a numpy
+``decode_attention``, ``_expert_ffn``, and a bf16 Whisper on float32 frames
+(at 2e-2). Float32 otherwise, inputs from a numpy
 seed, the reference's reduced weights carried into the port. Tolerances:
 1e-4 of the largest magnitude (``_close``); flash attention 1e-4 relative
 plus 1e-5 absolute; the segment scan 1e-5 relative plus 1e-6 absolute.
@@ -203,3 +204,31 @@ def test_expert_ffn_matches_the_reference():
     want = RMOE._expert_ffn(rp, jnp.asarray(x), rc.act)
     got = PMOE._expert_ffn(module.blocks[0].moe, _t(x), pc.act)
     _close(got, want, what="expert ffn")
+
+
+def test_bf16_whisper_on_float32_frames_matches_the_reference():
+    """A bf16 Whisper given float32 frames: the reference's ``jnp.einsum``
+    promotes the bf16 queries against the float32 encoder states, and so
+    does the port's blocked flash (it raised before). ``forward`` and
+    ``prefill`` against the reference within 2e-2 of the largest logit, the
+    bf16 attention tolerance of ``chip_smoke.py`` (``FLASH_TOL``)."""
+    import dataclasses
+
+    from repro.configs import get_config as rget
+    from repro.models import build_model as rbuild
+    from repro_torch.configs import get_config as pget
+    from repro_torch.interop import model_params_from_numpy
+    from repro_torch.models import build_model as pbuild
+    from torch_model_helpers import _batch, _first
+
+    rc = dataclasses.replace(rget("whisper_large_v3").reduced(), dtype="bfloat16")
+    pc = dataclasses.replace(pget("whisper_large_v3").reduced(), dtype="bfloat16")
+    params = jax.jit(rbuild(rc).init)(jax.random.key(0))
+    module = model_params_from_numpy(jax.tree.map(np.asarray, params), pc, "cpu")
+    rb, pb = _batch(rc, 2, 32)
+    assert pb["frames"].dtype == torch.float32
+    want = np.asarray(_first(rbuild(rc).forward(params, rb)), np.float32)
+    _close(_first(pbuild(pc).forward(module, pb)), want, rel=2e-2, what="forward")
+    want_last, _ = rbuild(rc).prefill(params, rb)
+    got_last, _ = pbuild(pc).prefill(module, pb)
+    _close(got_last, np.asarray(want_last, np.float32), rel=2e-2, what="prefill")

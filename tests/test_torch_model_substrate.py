@@ -5,7 +5,8 @@ and ``reduced()`` of the ten archs, the shape table, ids, aliases and
 cells), ``repro_torch.perf_flags`` vs ``repro.perf_flags`` (``set_flags``,
 ``parse_opt_string``, and each package reading its own environment), and
 ``repro_torch.sharding.specs`` vs ``repro.sharding.specs`` (the null
-topology; a meshed one raises ``NotImplementedError`` in the port).
+topology, and a meshed one over a ``repro_torch.compat.Mesh``; the model
+code's mesh paths are held in ``test_torch_mesh_*.py``).
 """
 
 import dataclasses
@@ -153,6 +154,9 @@ def test_null_topology_matches_the_reference():
 
 
 def test_meshed_topology_raises_and_names_the_next_slice():
+    """A meshed topology maps its axes as the reference's and is entered
+    (the mesh paths are ported); what it still refuses is a mesh that is
+    not the port's ``compat.Mesh``, naming the type it needs."""
     mesh = Mesh((2, 2), ("data", "model"), device="cpu")
     topo = pspecs.make_topology(mesh)
     # the mapping itself is the reference's
@@ -162,7 +166,12 @@ def test_meshed_topology_raises_and_names_the_next_slice():
     pod = pspecs.make_topology(Mesh((2, 2), ("pod", "data"), device="cpu"))
     assert (pod.batch_axes, pod.model_axis, pod.dp_size) == (("pod", "data"), None, 4)
     before = pspecs.current_topology()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        with pspecs.use_topology(topo):
+    x = torch.arange(6.0).reshape(2, 3)
+    with pspecs.use_topology(topo) as entered:
+        assert entered is topo and pspecs.current_topology() is topo
+        assert pspecs.shard(x, "batch", "model") is x
+    assert pspecs.current_topology() is before
+    with pytest.raises(TypeError, match="compat.Mesh"):
+        with pspecs.use_topology(pspecs.Topology(mesh=object())):
             pass
     assert pspecs.current_topology() is before

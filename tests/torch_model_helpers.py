@@ -81,7 +81,7 @@ def untied_router(monkeypatch):
 
     def untied(logits, k):
         top = torch.topk(torch.softmax(logits, dim=-1), k + 1, dim=-1).values
-        assert bool((top[:, k - 1] - top[:, k] > 1e-6).all())
+        assert bool((top[..., k - 1] - top[..., k] > 1e-6).all())
         return router(logits, k)
 
     monkeypatch.setattr(moe, "_router", untied)
