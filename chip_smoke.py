@@ -68,10 +68,36 @@ non-zero without printing a result:
               under (1, 4) (decode ``kv_mode="seq"``) serving the unmeshed
               engine's tokens wherever its top-2 margin exceeds
               ``SERVE_SAFE_MARGIN`` and the prefixes agree, tokens/s and
-              decode-step ms both ways. First ``mamba_sp_check`` and
-              ``moe_check`` (reduced, co-resident) on the card.
-              Its device times come with ``serve``'s, before ``profile``.
-6. main     — the offload path: ``OffloadEngine()`` (on the GPU by default)
+              decode-step ms both ways. First ``mamba_sp_check`` (its
+              fourth check, the gradient through ``dist_exscan``, included)
+              and ``moe_check`` (reduced, co-resident) on the card; the
+              full-width SP mixer's gradient against the unsharded one's
+              (2e-3 of each leaf's largest; K3 once forward and once back
+              to front). Its device times come with ``serve``'s, before
+              ``profile``.
+6. train    — the training path (``repro_torch.launch``, ``optim``,
+              ``runtime.train_loop``): K3's backward (the ``PrefixScan``
+              Function's back-to-front launch) against ``torch.cumsum``'s
+              autograd gradient at Mamba2-130m's (768, 256) segment rows
+              and (96, 1000), inclusive and exclusive, at the scan
+              tolerance; Mamba2-130m at full width in bf16 through
+              ``launch.train.main`` (``--full``, 20 steps at (8, 1024), the
+              seeded pipeline, a temporary checkpoint directory): every
+              loss finite, the last five's mean below the first five's,
+              K3 48 launches a step forward (each layer and its
+              recomputation) and 24 back to front, counted from zero over
+              the run; median step ms, tokens/s, peak memory; one step's
+              gradients of a 2-layer full-width f32 Mamba2-130m at (2, 512)
+              on the card against the CPU (1e-3 of each leaf's largest);
+              ``train_offload_check``'s bitwise scenario at full width, f32,
+              on a co-resident (2, 2) mesh, 8 x 512 (engine == raw bitwise
+              over 2 steps, step-2 cache hits, ``examples_seen`` 8, ms a
+              step each way); ``compressed_dp_check``. Its profiler
+              readings (a reverse K3 launch beside a forward one, one
+              profiled training step's device share) come with
+              ``serve``'s and ``mesh``'s, before ``profile`` (read after
+              ``times``, K3's launches left no device record on the card).
+7. main     — the offload path: ``OffloadEngine()`` (on the GPU by default)
               -> ``make_descriptor(..., backend="pallas", chunks=1)`` ->
               ``offload`` for SCAN, EXSCAN, ALLREDUCE and BARRIER at p = 8 and
               16 over the osu_scan message sizes (4 B - 1 MiB per rank) plus a
@@ -79,7 +105,7 @@ non-zero without printing a result:
               lowering and, on a small input, against numpy. K1's launch
               counts (in all and by path) are zeroed right before and read
               right after: every launch on the register path.
-7. service  — the multi-tenant broker (``DescriptorBroker`` over
+8. service  — the multi-tenant broker (``DescriptorBroker`` over
               ``OffloadEngine()``, its flush thread on the card): 1, 8 and
               64 client threads stream SCAN, EXSCAN and ALLREDUCE at axes
               (1, 8) through K1 (``backend="pallas"``, ``chunks=1``),
@@ -96,7 +122,7 @@ non-zero without printing a result:
               with it on; writing into one ticket's result leaves the
               others alone. Prints requests/s, client p50/p99 latency, the
               coalesce factor and K1 launches per request.
-8. reliability — ``repro_torch.testing.chaos_check`` on the card at (2, 4)
+9. reliability — ``repro_torch.testing.chaos_check`` on the card at (2, 4)
               and at (1, 8), on the default backend as the reference runs
               it: all five CollTypes bitwise through seeded 5% drop +
               corrupt chaos (retries), a poisoned payload quarantined by
@@ -110,13 +136,13 @@ non-zero without printing a result:
               declines the two-axis plan, and at (1, 8) through K1, every
               dispatch counted on K1), and ``payload_checksum`` at 16 KiB
               and 8 MiB.
-9. health   — ``repro_torch.testing.health_check`` at (2, 4) on the card
+10. health   — ``repro_torch.testing.health_check`` at (2, 4) on the card
               (a link-probed traced dispatch with one link slowed: the
               detector names that link and no other; sim, driver-mode and
               probed results bitwise; a deadline-miss SLO alert; the flight
               recorder's dump); ``HealthMonitor.ingest`` of a broker's and
               its engine's telemetry and ``render_dashboard`` of both.
-10. entry    — the on-chip entry points at full width: Mamba2-130m's segment
+11. entry    — the on-chip entry points at full width: Mamba2-130m's segment
               scan, OLMoE's expert offsets, memory-bound (8192, 8192) scans,
               Mamba2-130m's SSD recurrence, SmolLM-360M and Gemma3-27B
               attention and a decode step. The launch counts of K3, K4 (also
@@ -124,7 +150,7 @@ non-zero without printing a result:
               (one a call for K3 and K4; for K5 the launches its C entry
               reports, held to ``plan_launch``'s count); each result is held
               against its plain version.
-11. spmd     — the per-rank path: K2 (the per-rank collective kernel)
+12. spmd     — the per-rank path: K2 (the per-rank collective kernel)
               through ``get_backend("pallas").lower(plan, op,
               axis_names=("i",))`` under the port's ``shard_map`` on
               co-resident meshes of 8 and 16 ranks on the card (its cluster
@@ -139,12 +165,12 @@ non-zero without printing a result:
               after. Then the engine in driver mode (a mesh passed to
               ``offload``) for the five CollTypes and a planned (2, 4) SCAN,
               bitwise against sim mode.
-12. baseline — the paper's comparison (Figs. 4-5) at p = 8, float32 SUM:
+13. baseline — the paper's comparison (Figs. 4-5) at p = 8, float32 SUM:
               host-stepped ``host_scan`` (a dispatch and a sync per hop)
               against the whole schedule as one CUDA graph replay, and K1
               through the engine for hillis_steele; host_scan == sim_scan
               bitwise.
-13. tune     — the tuner on the card (``repro_torch.offload.tuner``):
+14. tune     — the tuner on the card (``repro_torch.offload.tuner``):
               ``autotune`` over p = 2-16 x 1 KiB - 1 MiB x the five colls x
               every applicable algorithm (eager, CUDA events),
               ``tune_schedule`` over (1, 8), (1, 16) and (2, 4) x
@@ -159,12 +185,14 @@ non-zero without printing a result:
               float32 MAX) and within ``scan_tolerance`` of float64 numpy
               (float32 SUM). Prints the fit, the p = 8 winners beside
               ``DEFAULT_LINK_MODEL``'s picks and the backend races.
-14. profile  — after the serving path's and the mesh phase's profiler
-              readings (K3's device time in a Mamba2-130m prefill, a decode
-              step's device time and host share for Mamba2-130m and
-              SmolLM-360M, the (8, 4096) bf16 forward with and without the
-              (1, 8) mesh, K3's device time in it beside the same scan
-              alone and its bytes bound): two ``profile_offload`` sessions
+15. profile  — after the serving path's, the mesh phase's and the
+              training path's profiler readings (K3's device time in a
+              Mamba2-130m prefill, a decode step's device time and host
+              share for Mamba2-130m and SmolLM-360M, the (8, 4096) bf16
+              forward with and without the (1, 8) mesh, K3's device time in
+              it beside the same scan alone and its bytes bound; a reverse
+              K3 launch beside a forward one, one training step's device
+              share): two ``profile_offload`` sessions
               of one K1 dispatch in a row, the second holding K1's device
               event; then ``profile_offload`` of hillis_steele
               SCAN at p = 8 over the baseline sizes: K1 and the default
@@ -178,7 +206,7 @@ non-zero without printing a result:
               ``engine.compile`` / phase span -> ``phase_round_count``
               round spans, the merged host+device trace aligned, the
               engine's series in the Prometheus text.
-15. times   — every kernel, its plain version and one PyTorch library call
+16. times   — every kernel, its plain version and one PyTorch library call
               at the main and entry shapes: device time from
               ``torch.profiler`` and the per-call time with CUDA events
               (host overhead included), beside the least time the card's
@@ -3564,16 +3592,38 @@ def mesh_mixer(torch, device, smi, mods):
     if launches["k3"] != 1:
         raise AssertionError(f"SP mixer: K3 launched {launches['k3']} times, "
                              "1 predicted")
+    # the fourth check: the gradient through dist_exscan, held to the
+    # unsharded mixer's; K3 once forward and once back to front for all 8
+    # shards
+    del y_sp, cache_sp
+    g_ref = mamba_sp_check.mixer_grads(torch, p, lambda: M.mamba_mixer(
+        p, x, cfg))
+    _zeroed(mods)
+    mods["k3"].reverse_launches = 0
+    g_sp = mamba_sp_check.mixer_grads(torch, p, lambda: _under(
+        mesh, lambda: M.mamba_mixer(p, x, cfg, seq_parallel=True)))
+    torch.cuda.synchronize()
+    grad_launches = (mods["k3"].launches - mods["k3"].reverse_launches,
+                     mods["k3"].reverse_launches)
+    grad_checks = mamba_sp_check.compare_grads(torch, g_sp, g_ref)
+    failed = [c for c in grad_checks if not c[1]]
+    if failed or grad_launches != (1, 1):
+        raise AssertionError(f"full-width SP mixer gradient: {failed}, K3 "
+                             f"(forward, reverse) {grad_launches}")
+    del g_ref, g_sp
     line = {"phase": "mesh_mixer", "arch": cfg.name, "dtype": "float32",
             "shape": [B, S, cfg.d_model], "mesh": [1, 8],
             "max_abs_err": {name: err for name, _, err in checks},
+            "grad": {name: err for name, _, err in grad_checks},
             "tolerance": {"output": mamba_sp_check.TOL,
                           "ssm": mamba_sp_check.TOL,
-                          "conv_tail": mamba_sp_check.CONV_TOL},
-            "k3_launches": launches["k3"], "wall_ms": wall_ms, "card": smi,
-            "ok": True}
+                          "conv_tail": mamba_sp_check.CONV_TOL,
+                          "grad": mamba_sp_check.GRAD_TOL},
+            "k3_launches": launches["k3"],
+            "grad_k3_launches": list(grad_launches),
+            "wall_ms": wall_ms, "card": smi, "ok": True}
     emit(line)
-    del p, x, y_ref, y_sp, cache_ref, cache_sp
+    del p, x, y_ref, cache_ref
     torch.cuda.empty_cache()
     return line
 
@@ -3971,6 +4021,307 @@ def phase_times_mesh(torch, device, smi):
     return line, serve
 
 
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+#: K3's backward checks: Mamba2-130m's segment-scan rows at (8, 1024)
+#: (8 x 4 chunks x 24 heads, chunk 256), a ragged row length in one tile,
+#: and a ragged row of five tiles (the carry across tiles, back to front)
+TRAIN_K3_SHAPES = ((768, 256), (96, 1000), (64, 5000))
+#: the full-width run through ``launch.train``: (steps, batch, seq)
+TRAIN_RUN = (20, 8, 1024)
+#: card-against-CPU gradient parity: layers, (B, S); a leaf's gap over its
+#: largest magnitude
+TRAIN_PARITY = (2, (2, 512))
+TRAIN_PARITY_TOL = 1e-3
+#: the offloaded DP step: mesh, (global batch, seq), steps, timed steps
+TRAIN_DP = ((2, 2), (8, 512), 2, 3)
+
+
+def k3_grad_case(torch, device, shape, exclusive, seed):
+    """K3's Function on the card against ``torch.cumsum``'s autograd on the
+    same card and inputs: the input gradient of an add scan (one forward
+    launch, one back-to-front launch)."""
+    from repro_torch.kernels.ops import prefix_scan
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=device, requires_grad=True)
+    g = torch.randn(shape, generator=gen, device=device)
+    (got,) = torch.autograd.grad(prefix_scan(x, exclusive=exclusive), x, g)
+    ref = torch.cumsum(x, dim=-1)
+    if exclusive:
+        ref = torch.cat([torch.zeros_like(ref[:, :1]), ref[:, :-1]], dim=-1)
+    (want,) = torch.autograd.grad(ref, x, g)
+    return got, want
+
+
+def train_k3(torch, device, smi, mods):
+    """K3's backward (the Function's back-to-front launch) against its plain
+    version at the training shapes, inclusive and exclusive; a ``max`` scan
+    of a tensor that requires grad raises."""
+    from repro_torch.kernels.ops import prefix_scan
+
+    k3 = mods["k3"]
+    rtol, atol = scan_tolerance(torch, "add", torch.float32)
+    cases = []
+    for i, shape in enumerate(TRAIN_K3_SHAPES):
+        for exclusive in (False, True):
+            before = (k3.launches, k3.reverse_launches)
+            got, want = k3_grad_case(torch, device, shape, exclusive, 40 + i)
+            torch.cuda.synchronize()
+            made = (k3.launches - before[0], k3.reverse_launches - before[1])
+            if made != (2, 1):
+                raise AssertionError(f"K3 grad {shape}: launches (all, "
+                                     f"reverse) {made}, (2, 1) predicted")
+            err = assert_match(torch, got, want, rtol, atol,
+                               f"K3 backward {shape} exclusive={exclusive}")
+            cases.append({"shape": list(shape), "exclusive": exclusive,
+                          "max_abs_err": err, "forward_launches": 1,
+                          "backward_launches": made[1]})
+    x = torch.zeros(4, 8, device=device, requires_grad=True)
+    try:
+        prefix_scan(x, op="max")
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("a max scan of a tensor that requires grad "
+                             "did not raise")
+    line = {"phase": "train_k3", "cases": cases,
+            "tolerance": {"rtol": rtol, "atol": atol}, "card": smi,
+            "ok": True}
+    emit(line)
+    return line
+
+
+def train_launcher(torch, device, smi, mods):
+    """Mamba2-130m at full width (24 layers, bf16, weights from seed 0)
+    through ``launch.train.main``, ``TRAIN_RUN`` steps of the seeded
+    pipeline: every loss finite, the last five's mean below the first
+    five's; K3 launched 48 times a step forward (the layer, then its
+    recomputation in the backward) and 24 back to front."""
+    import statistics
+    import tempfile
+
+    from repro_torch.launch import train
+
+    steps, B, S = TRAIN_RUN
+    k3 = mods["k3"]
+    torch.cuda.reset_peak_memory_stats(device)
+    with tempfile.TemporaryDirectory() as ckpt:
+        _zeroed(mods)
+        k3.reverse_launches = 0
+        t0 = time.perf_counter()
+        out = train.main(["--arch", "mamba2-130m", "--full", "--steps",
+                          str(steps), "--batch", str(B), "--seq", str(S),
+                          "--ckpt-dir", ckpt, "--device", str(device)])
+        wall_s = time.perf_counter() - t0
+        launches = {key: mods[key].launches for key in mods}
+        reverse = k3.reverse_launches
+    cfg, hist = out["config"], out["history"]
+    losses = [h["loss"] for h in hist]
+    if len(losses) != steps or not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"launch.train losses {losses}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first five {first}, last "
+                             f"five {last}")
+    L = cfg.num_layers
+    forward = launches["k3"] - reverse
+    if (forward, reverse) != (steps * 2 * L, steps * L):
+        raise AssertionError(
+            f"K3 over {steps} steps: {forward} forward and {reverse} "
+            f"reverse launches, {steps * 2 * L} and {steps * L} predicted")
+    step_ms = statistics.median(h["step_time_s"] for h in hist) * 1e3
+    line = {"phase": "train", "arch": cfg.name, "dtype": cfg.dtype,
+            "layers": L, "batch": [B, S], "steps": steps,
+            "losses": losses, "first5_mean": first, "last5_mean": last,
+            "k3_launches_per_step": {"forward": forward / steps,
+                                     "backward": reverse / steps},
+            "other_launches": {k: v for k, v in launches.items()
+                               if k != "k3"},
+            "median_step_ms": step_ms,
+            "tokens_per_s": B * S / (step_ms / 1e3),
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated(device) / 2**30,
+            "wall_s": wall_s, "card": smi, "ok": True}
+    emit(line)
+    torch.cuda.empty_cache()
+    return line
+
+
+def train_parity(torch, device, smi):
+    """One step's gradients of Mamba2-130m at full width in float32 (d_model
+    768, 24 heads, state 128), cut to ``TRAIN_PARITY``'s layers, on the
+    card against the port on the CPU, same weights (one seed) and batch:
+    each leaf within ``TRAIN_PARITY_TOL`` of its largest magnitude."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.launch.steps import batch_to, loss_and_grads
+    from repro_torch.models import build_model
+
+    layers, (B, S) = TRAIN_PARITY
+    cfg = dataclasses.replace(get_config("mamba2-130m"), num_layers=layers,
+                              dtype="float32")
+    api = build_model(cfg)
+    batch = next(batches(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                    global_batch=B, seed=7)))
+    got = []
+    for where in (device, torch.device("cpu")):
+        model = api.init(torch.Generator().manual_seed(7), device=where)
+        got.append(loss_and_grads(api, model, batch_to(batch, where)))
+        del model
+    (l_card, _, g_card), (l_cpu, _, g_cpu) = got
+    gaps = {k: rel_err(torch, g_card[k], g) for k, g in g_cpu.items()}
+    worst = max(gaps, key=gaps.get)
+    if gaps[worst] > TRAIN_PARITY_TOL:
+        raise AssertionError(f"card-vs-CPU gradient of {worst}: "
+                             f"{gaps[worst]:.3g} of its largest magnitude")
+    line = {"phase": "train_parity", "arch": cfg.name, "dtype": cfg.dtype,
+            "layers": layers, "batch": [B, S],
+            "loss": {"card": float(l_card), "cpu": float(l_cpu)},
+            "worst_leaf": worst, "worst_gap": gaps[worst],
+            "tolerance": TRAIN_PARITY_TOL, "leaves": len(gaps),
+            "card": smi, "ok": True}
+    emit(line)
+    del got
+    torch.cuda.empty_cache()
+    return line
+
+
+def train_dp(torch, device, smi, mods):
+    """``train_offload_check``'s bitwise scenario on the card: Mamba2-130m
+    at full width in float32 on a co-resident (2, 2) ``("pod", "data")``
+    mesh, the engine's driver-mode descriptors against the raw
+    ``compat.psum`` step (loss, grad_norm and every parameter bitwise over
+    two steps, step 2 a plan-cache hit, ``examples_seen`` the global batch),
+    then ms a step of each."""
+    from repro_torch import compat
+    from repro_torch.testing import train_offload_check as toc
+
+    mesh_shape, (B, S), steps, iters = TRAIN_DP
+    _zeroed(mods)
+    rep = toc.bitwise_scenario(
+        compat.Mesh(mesh_shape, ("pod", "data"), device=device), device,
+        steps=steps, bench_iters=iters, arch="mamba2-130m", full=True,
+        dtype="float32", batch=B, seq=S)
+    launches = {key: mods[key].launches for key in mods}
+    failed = [name for name, ok in rep.checks if not ok]
+    if failed:
+        raise AssertionError(f"offloaded DP step: {failed}; {rep.rows}")
+    line = {"phase": "train_dp", "arch": "mamba2-130m", "dtype": "float32",
+            "mesh": list(mesh_shape), "batch": [B, S], "steps": steps,
+            "checks": [name for name, _ in rep.checks], "rows": rep.rows,
+            "raw_ms": rep.values["raw_lax_ms"],
+            "engine_ms": rep.values["offload_engine_ms"],
+            "launches": launches, "card": smi, "ok": True}
+    emit(line)
+    del rep
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_train(torch, device, smi):
+    """The training path on the card (see the module docstring, phase 6);
+    its profiler readings come later, in :func:`phase_times_train`."""
+    mods = kernel_modules()
+    t0 = time.perf_counter()
+    k3 = train_k3(torch, device, smi, mods)
+    run = train_launcher(torch, device, smi, mods)
+    parity = train_parity(torch, device, smi)
+    dp = train_dp(torch, device, smi, mods)
+    check_module("compressed_dp_check", [], device)
+    emit({"phase": "train_summary", "seconds": time.perf_counter() - t0,
+          "k3_backward_max_abs_err": max(c["max_abs_err"]
+                                         for c in k3["cases"]),
+          "k3_launches_per_step": run["k3_launches_per_step"],
+          "losses_first_last": [run["losses"][0], run["losses"][-1]],
+          "parity_worst": [parity["worst_leaf"], parity["worst_gap"]],
+          "dp_ms": {"raw": dp["raw_ms"], "engine": dp["engine_ms"]},
+          "card": smi, "ok": True})
+    return {"k3_launches_per_step": run["k3_launches_per_step"]}
+
+
+def phase_times_train(torch, device, smi, card):
+    """The training path's profiler readings: a reverse K3 launch beside a
+    forward one at Mamba2-130m's (768, 256) segment-scan rows and at the
+    memory-bound (8192, 8192) f32, each with its bytes bound, and one full-width bf16 training step (the
+    launcher's model and shape) under ``torch.profiler``: host wall ms,
+    device ms, the device share and K3's device ms and launches in it."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.launch.steps import build_train_step, trainable
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.sharding import Topology
+
+    k3 = kernel_modules()["k3"]
+
+    def forward_and_reverse(shape):
+        x = torch.randn(*shape, device=device)
+        scan = {}
+        for name, rev in (("forward", False), ("reverse", True)):
+            scan[name] = {
+                "device_ms": device_ms(
+                    torch, lambda: k3.scan_rows(x, reverse=rev), 100,
+                    name=KERNELS["k3"][3]),
+                "event_ms": time_ms(
+                    torch, lambda: k3.scan_rows(x, reverse=rev), 100)}
+        bound = 2 * x.numel() * x.element_size() / mem_bandwidth(card) * 1e3
+        rtol, atol = scan_tolerance(torch, "add", x.dtype)
+        scan["reverse"]["max_abs_err"] = assert_match(
+            torch, k3.scan_rows(x, reverse=True),
+            torch.cumsum(x.flip(-1), dim=-1).flip(-1), rtol, atol,
+            f"K3 reverse {tuple(shape)}")
+        return scan, bound
+
+    R, L = TRAIN_K3_SHAPES[0]
+    scan, bound_ms = forward_and_reverse((R, L))
+    # the memory-bound shape of the onchip phase, where a launch's fixed
+    # cost does not hide a slower reverse indexing
+    big, big_bound_ms = forward_and_reverse((8192, 8192))
+    torch.cuda.empty_cache()
+    steps, B, S = TRAIN_RUN
+    cfg = get_config("mamba2-130m")
+    api = build_model(cfg)
+    step_fn, _, _ = build_train_step(
+        api, Topology(mesh=None), ShapeConfig("cli", S, B, "train"),
+        AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=steps))
+    model = trainable(api.init(torch.Generator().manual_seed(0),
+                               device=device))
+    opt = init_opt_state(model)
+    data = batches(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                              global_batch=B))
+    state = [model, opt]
+
+    def step():
+        state[0], state[1], m = step_fn(state[0], state[1], next(data))
+        return float(m["loss"])
+
+    for _ in range(2):
+        step()
+    wall_ms, table = kernel_times(torch, step)
+    dev = sum(ms for ms, _ in table.values()) if table else None
+    k3_rows = [v for k, v in table.items() if KERNELS["k3"][3] in k]
+    line = {"phase": "times_train", "card": smi,
+            "k3_rows": [R, L], "k3_bound_ms": bound_ms, "k3": scan,
+            "k3_big": {"rows": [8192, 8192], "bound_ms": big_bound_ms,
+                       **big},
+            "step": {"arch": cfg.name, "dtype": cfg.dtype, "batch": [B, S],
+                     "wall_ms": wall_ms, "device_ms": dev,
+                     "device_share": None if dev is None else dev / wall_ms,
+                     "k3_device_ms": (sum(ms for ms, _ in k3_rows)
+                                      if k3_rows else None),
+                     "k3_launches_profiled": sum(n for _, n in k3_rows)}}
+    emit(line)
+    del state, model, opt
+    torch.cuda.empty_cache()
+    return line
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3989,6 +4340,7 @@ def main() -> int:
     phase_onchip(torch, device)
     serve = phase_serve(torch, device, smi)
     mesh = phase_mesh(torch, device, smi)
+    train = phase_train(torch, device, smi)
     launches = phase_main(torch, device)
     phase_service(torch, device)
     phase_reliability(torch, device)
@@ -4002,6 +4354,7 @@ def main() -> int:
     # events
     phase_times_serve(torch, device, smi)
     phase_times_mesh(torch, device, smi)
+    phase_times_train(torch, device, smi, card)
     phase_profile(torch, device)
     k1 = phase_times(torch, device, card, launches)
     k2 = phase_times_spmd(torch, device, card, spmd_launches)
@@ -4012,6 +4365,7 @@ def main() -> int:
     # serving tenancy
     onchip[0]["serve_launches"] = serve["full"][0]["launches"]["k3"]
     onchip[0]["mesh_launches"] = mesh["k3_launches"]
+    onchip[0]["train_launches"] = train["k3_launches_per_step"]
     k1["serve_launches"] = serve["tenancy"]["k1_launches"]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     emit({"kernels": [k1, k2, *onchip]})

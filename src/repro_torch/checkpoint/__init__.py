@@ -1,0 +1,5 @@
+"""Checkpoints of the port (counterpart of ``repro.checkpoint``)."""
+
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

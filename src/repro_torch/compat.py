@@ -142,11 +142,16 @@ def _spec_names(spec: Spec) -> Tuple[str, ...]:
 
 def _logical_index(mesh: Mesh, flat: int, names: Tuple[str, ...]) -> int:
     """The row of rank ``flat`` in a leading axis split over ``names``
-    (first name major)."""
-    if sorted(names) != sorted(mesh.axis_names):
+    (first name major). A spec names every mesh axis once; it may leave out
+    an axis of size 1 (whose coordinate is always 0), as a reference spec
+    over the surviving axes of a shrunken mesh does."""
+    unnamed = [n for n in mesh.axis_names if n not in names]
+    if (len(set(names)) != len(names)
+            or any(n not in mesh.axis_names for n in names)
+            or any(mesh.shape[mesh.axis(n)] != 1 for n in unnamed)):
         raise ValueError(
-            f"a spec must name every mesh axis once; got {names} for "
-            f"{mesh.axis_names}"
+            f"a spec must name every mesh axis of more than one rank once; "
+            f"got {names} for {mesh.axis_names} of {mesh.shape}"
         )
     coords = _coords(mesh, flat)
     row = 0
@@ -154,6 +159,17 @@ def _logical_index(mesh: Mesh, flat: int, names: Tuple[str, ...]) -> int:
         ax = mesh.axis(n)
         row = row * mesh.shape[ax] + coords[ax]
     return row
+
+
+def own_rows(mesh: Mesh, spec: Spec) -> List[int]:
+    """The rows of a leading axis split over ``spec`` (first name major)
+    that this process holds: every row for co-resident ranks, its own for a
+    process of a group."""
+    names = _spec_names(spec)
+    if mesh.coresident:
+        _logical_index(mesh, 0, names)  # validates the spec
+        return list(range(mesh.size))
+    return [_logical_index(mesh, mesh.ranks.group_rank, names)]
 
 
 class _RankGroup:
@@ -215,7 +231,10 @@ class _CoResident(_RankGroup):
     def _cached(self, key, make):
         got = self._index.get(key)
         if got is None:
-            got = make()
+            # made outside inference mode: a cached index serves a serving
+            # call under ``torch.inference_mode()`` and a training step alike
+            with torch.inference_mode(False):
+                got = make()
             self._index[key] = got
         return got
 
@@ -268,14 +287,15 @@ class _CoResident(_RankGroup):
     def _order(self, names: Tuple[str, ...]) -> Optional[torch.Tensor]:
         """Row ``f`` of the stacked form is row ``order[f]`` of the spec's
         order; None when the two orders agree."""
-        key = ("order", names)
-        if key not in self._index:
+        def make():
             mesh = self.mesh
             rows = [_logical_index(mesh, f, names) for f in range(mesh.size)]
-            self._index[key] = (
-                None if rows == list(range(mesh.size))
-                else torch.tensor(rows, device=mesh.device)
-            )
+            return (None if rows == list(range(mesh.size))
+                    else torch.tensor(rows, device=mesh.device))
+
+        key = ("order", names)
+        if key not in self._index:
+            self._cached(key, make)
         return self._index[key]
 
     def _check(self, a: torch.Tensor) -> None:
@@ -411,7 +431,8 @@ class _PerProcess(_RankGroup):
         ax = self.mesh.axis(name)
         me = self.coords[ax]
         leaves, spec = tree_flatten(tree)
-        outs = [torch.zeros_like(a) for a in leaves]
+        outs = [torch.zeros_like(a, memory_format=torch.contiguous_format)
+                for a in leaves]  # gloo receives into contiguous buffers
         ops = []
         for s, d in perm:
             if s == me and d == me:
@@ -610,6 +631,28 @@ def _stack() -> List[Mesh]:
     if stack is None:
         stack = _SCOPE.meshes = []
     return stack
+
+
+def bound_meshes() -> Tuple[Mesh, ...]:
+    """The meshes whose axis names are bound here, outermost first."""
+    return tuple(_stack())
+
+
+class bind_meshes:
+    """Bind ``meshes`` (as :func:`bound_meshes` returned them) for a block:
+    a recomputation that autograd runs after its region was left, or on its
+    own thread, sees the axis names its forward saw."""
+
+    def __init__(self, meshes: Sequence[Mesh]) -> None:
+        self.meshes = tuple(meshes)
+
+    def __enter__(self) -> None:
+        stack = _stack()
+        self.saved = list(stack)
+        stack[:] = self.meshes
+
+    def __exit__(self, *exc) -> None:
+        _stack()[:] = self.saved
 
 
 def mesh_of(axis_name: str) -> Mesh:

@@ -8,7 +8,8 @@ What crosses is
   ``(m, l, o)`` tuples, as numpy arrays on one side and tensors on the other;
 * model weights: the reference's ``init_lm`` / ``init_encdec`` pytree as
   numpy arrays, loaded into the port's module by
-  :func:`model_params_from_numpy`. The models run from seeded random
+  :func:`model_params_from_numpy` (trainable on request), and the
+  reference's AdamW state by :func:`opt_state_from_numpy`. The models run from seeded random
   initialisation; carrying one package's weights into the other is how the
   parity tests hold the two to the same function.
 
@@ -69,8 +70,25 @@ def _leaves(tree: Any, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, 
         yield path, tree
 
 
+def _port_names(params_np: Any) -> Iterator[Tuple[str, str, Any]]:
+    """(reference path, port ``state_dict`` name, numpy leaf) of every leaf
+    of a reference params pytree, each stacked leaf split per layer."""
+    for path, leaf in _leaves(params_np):
+        name = "/".join(path)
+        a = np.asarray(leaf)
+        if path[0] in _STACKED:
+            if a.ndim == 0:
+                raise ValueError(f"{name}: a stacked leaf needs a layer axis, "
+                                 f"got shape {a.shape}")
+            for i in range(a.shape[0]):
+                yield name, ".".join((path[0], str(i)) + path[1:]), a[i]
+        else:
+            yield name, ".".join(path), a
+
+
 def model_params_from_numpy(params_np: Any, cfg: Any,
-                            device: "torch.device | str") -> "torch.nn.Module":
+                            device: "torch.device | str", *,
+                            trainable: bool = False) -> "torch.nn.Module":
     """The port's module for ``cfg`` holding the reference's weights.
 
     ``params_np`` is the reference's ``init_lm`` / ``init_encdec`` pytree
@@ -80,24 +98,17 @@ def model_params_from_numpy(params_np: Any, cfg: Any,
     per layer onto ``blocks.<l>.<...>`` (``periods.<i>.sub_<j>.<...>``).
     Values cross bit for bit. A leaf the module lacks, a parameter no leaf
     fills, or a leaf whose shape or dtype differs raises ``ValueError``
-    naming its path."""
+    naming its path. With ``trainable`` every parameter requires grad (the
+    training path's module); otherwise none does, as serving keeps them."""
     from repro_torch.models import build_model
 
     module = build_model(cfg).init(torch.Generator().manual_seed(0),
                                    device="meta")
     want = module.state_dict()
     got: Dict[str, torch.Tensor] = {}
-    for path, leaf in _leaves(params_np):
-        name = "/".join(path)
-        a = np.array(leaf)  # a writable copy: the module owns its weights
-        if path[0] in _STACKED:
-            if a.ndim == 0:
-                raise ValueError(f"{name}: a stacked leaf needs a layer axis, "
-                                 f"got shape {a.shape}")
-            for i in range(a.shape[0]):
-                got[".".join((path[0], str(i)) + path[1:])] = (name, a[i])
-        else:
-            got[".".join(path)] = (name, a)
+    for name, key, a in _port_names(params_np):
+        # a writable copy: the module owns its weights
+        got[key] = (name, np.array(a))
     extra = sorted({name for key, (name, _) in got.items() if key not in want})
     if extra:
         raise ValueError(f"leaves the {cfg.name} module has no parameter for: "
@@ -116,5 +127,29 @@ def model_params_from_numpy(params_np: Any, cfg: Any,
                 f"module wants {tuple(ref.shape)} {ref.dtype}")
         state[key] = t.to(device)
     module.load_state_dict(state, strict=True, assign=True)
-    module.requires_grad_(False)
+    module.requires_grad_(trainable)
     return module
+
+
+def opt_state_from_numpy(opt_np: Any, module: "torch.nn.Module") -> Dict[str, Any]:
+    """The reference's AdamW state (``init_opt_state`` / ``adamw_update``'s:
+    ``m``, ``v`` and ``master`` params pytrees of numpy arrays and
+    ``count``) as the port's (:mod:`repro_torch.optim.adamw`): ``{name:
+    float32 tensor}`` dicts under ``module``'s parameter names, on its
+    device, and a 0-d int32 ``count``. A leaf no parameter takes, or a
+    parameter no leaf fills, raises ``ValueError``."""
+    params = dict(module.named_parameters())
+    device = next(iter(params.values())).device
+    out: Dict[str, Any] = {}
+    for part in ("m", "v", "master"):
+        got = {key: _tensor_from_numpy(np.array(a), device)
+               for _, key, a in _port_names(opt_np[part])}
+        if set(got) != set(params):
+            raise ValueError(
+                f"opt state {part!r}: leaves {sorted(set(got) - set(params))} "
+                f"have no parameter, parameters "
+                f"{sorted(set(params) - set(got))} no leaf")
+        out[part] = {k: got[k] for k in params}
+    out["count"] = torch.tensor(int(np.asarray(opt_np["count"])),
+                                dtype=torch.int32, device=device)
+    return out

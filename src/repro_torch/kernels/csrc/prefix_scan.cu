@@ -21,6 +21,15 @@
 // only R blocks busy and leaves most SMs idle: a decoupled look-back across
 // blocks is the cure, not taken here.
 //
+// REVERSE: the row is read and written from its end, so the scan runs back
+// to front (y[i] combines x[i..L-1], or x[i+1..L-1] when exclusive). This is
+// the backward of an add scan: the gradient of y = cumsum(x) is the reverse
+// cumsum of the incoming gradient. The index is mirrored on the load and the
+// store, so no flipped copy of the row is ever made. It is a template flag,
+// instantiated for the add scan only: the forward instantiation indexes the
+// row exactly as it did before the flag existed (a run-time flag put a
+// run-time stride into every load and store and slowed the forward).
+//
 // Arithmetic: float32, bfloat16 and float16 carry in float32 and round once
 // per output (not at every combine as the TPU's associative_scan does).
 // Integer sums and products wrap (int8 is carried in 32-bit and truncated on
@@ -106,7 +115,7 @@ template <> struct Op<int32_t, OP_MAX> {
 // One block per row. exclusive: the output at i is the inclusive scan at i-1
 // and `fill` (the wrapper's identity: 0, 1 or the type's lowest value, each
 // exact in the carry type) at 0.
-template <typename T, int OP>
+template <typename T, int OP, bool REVERSE>
 __global__ void k3_scan_kernel(const T* __restrict__ x, T* __restrict__ y, long long L,
                                int exclusive, double fill) {
   typedef typename Io<T>::A A;
@@ -122,7 +131,10 @@ __global__ void k3_scan_kernel(const T* __restrict__ x, T* __restrict__ y, long 
   const int nwarps = (blockDim.x + 31) >> 5;
   const long long tile = (long long)blockDim.x * ITEMS;
 
-  if (exclusive && tid == 0 && L > 0) yr[0] = Io<T>::out((A)fill);
+  // logical element i of the row lives at i, or at L-1-i when reversed
+  auto at = [L](long long i) { return REVERSE ? L - 1 - i : i; };
+
+  if (exclusive && tid == 0 && L > 0) yr[at(0)] = Io<T>::out((A)fill);
 
   A carry = O::identity();
   for (long long base = 0; base < L; base += tile) {
@@ -131,7 +143,7 @@ __global__ void k3_scan_kernel(const T* __restrict__ x, T* __restrict__ y, long 
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
       const long long i = first + k;
-      v[k] = i < L ? Io<T>::in(xr[i]) : O::identity();
+      v[k] = i < L ? Io<T>::in(xr[at(i)]) : O::identity();
     }
 #pragma unroll
     for (int k = 1; k < ITEMS; ++k) v[k] = O::combine(v[k - 1], v[k]);
@@ -164,7 +176,7 @@ __global__ void k3_scan_kernel(const T* __restrict__ x, T* __restrict__ y, long 
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
       const long long i = first + k + (exclusive ? 1 : 0);
-      if (i < L) yr[i] = Io<T>::out(O::combine(prefix, v[k]));
+      if (i < L) yr[at(i)] = Io<T>::out(O::combine(prefix, v[k]));
     }
     carry = O::combine(carry, warp_tot[nwarps - 1]);
     __syncthreads();  // warp_tot is rewritten by the next tile
@@ -173,20 +185,24 @@ __global__ void k3_scan_kernel(const T* __restrict__ x, T* __restrict__ y, long 
 
 template <typename T>
 int launch_ops(int op, const void* x, void* y, long long R, long long L, int exclusive,
-               double fill, int threads, cudaStream_t s) {
+               int reverse, double fill, int threads, cudaStream_t s) {
   if (R <= 0 || L <= 0) return 0;
   if (R > 0x7fffffffLL || threads < 32 || threads > 1024 || threads % 32) return -2;
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
+  if (reverse && op != OP_ADD) return -1;
   switch (op) {
     case OP_ADD:
-      k3_scan_kernel<T, OP_ADD><<<(unsigned)R, threads, 0, s>>>(xt, yt, L, exclusive, fill);
+      if (reverse)
+        k3_scan_kernel<T, OP_ADD, true><<<(unsigned)R, threads, 0, s>>>(xt, yt, L, exclusive, fill);
+      else
+        k3_scan_kernel<T, OP_ADD, false><<<(unsigned)R, threads, 0, s>>>(xt, yt, L, exclusive, fill);
       break;
     case OP_MAX:
-      k3_scan_kernel<T, OP_MAX><<<(unsigned)R, threads, 0, s>>>(xt, yt, L, exclusive, fill);
+      k3_scan_kernel<T, OP_MAX, false><<<(unsigned)R, threads, 0, s>>>(xt, yt, L, exclusive, fill);
       break;
     case OP_MUL:
-      k3_scan_kernel<T, OP_MUL><<<(unsigned)R, threads, 0, s>>>(xt, yt, L, exclusive, fill);
+      k3_scan_kernel<T, OP_MUL, false><<<(unsigned)R, threads, 0, s>>>(xt, yt, L, exclusive, fill);
       break;
     default:
       return -1;
@@ -196,20 +212,21 @@ int launch_ops(int op, const void* x, void* y, long long R, long long L, int exc
 
 }  // namespace
 
-// Scan every row of a contiguous (R, L) array x into y. Returns
-// cudaGetLastError() after the launch (0 on success), -1 for an op or dtype
-// the kernel does not take, -2 for a grid or block it cannot launch.
+// Scan every row of a contiguous (R, L) array x into y, back to front when
+// reverse is set (add only). Returns cudaGetLastError() after the launch (0
+// on success), -1 for an op, dtype or direction the kernel does not take, -2
+// for a grid or block it cannot launch.
 extern "C" int k3_prefix_scan(int op, int dtype, const void* x, void* y, long long R,
-                              long long L, int exclusive, double fill, int threads,
-                              void* stream) {
+                              long long L, int exclusive, int reverse, double fill,
+                              int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case DT_FLOAT32: return launch_ops<float>(op, x, y, R, L, exclusive, fill, threads, s);
+    case DT_FLOAT32: return launch_ops<float>(op, x, y, R, L, exclusive, reverse, fill, threads, s);
     case DT_BFLOAT16:
-      return launch_ops<__nv_bfloat16>(op, x, y, R, L, exclusive, fill, threads, s);
-    case DT_FLOAT16: return launch_ops<__half>(op, x, y, R, L, exclusive, fill, threads, s);
-    case DT_INT32: return launch_ops<int32_t>(op, x, y, R, L, exclusive, fill, threads, s);
-    case DT_INT8: return launch_ops<int8_t>(op, x, y, R, L, exclusive, fill, threads, s);
+      return launch_ops<__nv_bfloat16>(op, x, y, R, L, exclusive, reverse, fill, threads, s);
+    case DT_FLOAT16: return launch_ops<__half>(op, x, y, R, L, exclusive, reverse, fill, threads, s);
+    case DT_INT32: return launch_ops<int32_t>(op, x, y, R, L, exclusive, reverse, fill, threads, s);
+    case DT_INT8: return launch_ops<int8_t>(op, x, y, R, L, exclusive, reverse, fill, threads, s);
     default: return -1;
   }
 }

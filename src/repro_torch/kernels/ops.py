@@ -15,6 +15,15 @@ kernels' 2-D / 3-D forms and reshape back. Differences:
   ``block_kv`` are accepted and ignored: the CUDA kernels choose their own
   tiles, and nothing is padded (each kernel masks its ragged edge);
 * the exclusive shift of ``prefix_scan`` happens inside K3 on the card;
+* ``prefix_scan`` has a gradient (the reference's comes from the jnp path
+  off the TPU): for ``op="add"`` it is K3 run back to front
+  (:class:`~repro_torch.kernels.prefix_scan.PrefixScan`); a ``max`` or
+  ``mul`` scan of a tensor that requires grad raises
+  ``NotImplementedError``;
+* ``ssd_scan`` and ``flash_attention`` have no backward: under autograd,
+  with an input that requires grad, each raises ``NotImplementedError``
+  instead of returning a result without autograd history (K4 and K5 write
+  into a fresh tensor through ctypes, which would drop the gradient);
 * ``ssd_scan`` starts K4's recurrence from ``h0`` instead of folding it in
   afterwards through a multiplicative prefix scan (one pass instead of
   three; the same function up to rounding).
@@ -32,6 +41,15 @@ from repro_torch.kernels import prefix_scan as _scan
 from repro_torch.kernels import ssd_scan as _ssd
 
 
+def _no_grad_through(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when autograd would need a backward that ``name`` lacks."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"no gradient for {name}: its kernel has no backward; call it "
+            "under torch.no_grad() or on inputs that do not require grad")
+
+
 def prefix_scan(
     x: torch.Tensor,
     *,
@@ -43,13 +61,20 @@ def prefix_scan(
     """Prefix scan along the last axis of an arbitrary-rank tensor.
 
     ``block_rows`` / ``block_len`` are accepted for the reference's
-    signature and ignored.
+    signature and ignored. Under autograd an add scan's gradient is K3 run
+    back to front.
     """
     del block_rows, block_len
     if x.ndim == 0:
         raise ValueError("prefix_scan needs at least one axis")
     flat = x.reshape(-1, x.shape[-1])
-    return _scan.scan_rows(flat, op=op, exclusive=exclusive).reshape(x.shape)
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return _scan.scan_rows(flat, op=op, exclusive=exclusive).reshape(x.shape)
+    if op != "add":
+        raise NotImplementedError(
+            f"no gradient for a {op!r} prefix scan: only the add scan has a "
+            "backward (K3 run back to front)")
+    return _scan.PrefixScan.apply(flat, exclusive).reshape(x.shape)
 
 
 def ssd_scan(
@@ -70,6 +95,7 @@ def ssd_scan(
     signature and ignored.
     """
     del block_rows, block_time
+    _no_grad_through("ssd_scan", a, b, h0)
     if a.ndim < 2 or a.shape != b.shape:
         raise ValueError(
             f"expected matching (..., T, D) shapes, got {tuple(a.shape)} "
@@ -112,5 +138,6 @@ def flash_attention(
     and ignored.
     """
     del block_q, block_kv
+    _no_grad_through("flash_attention", q, k, v)
     return _flash.attention(q, k, v, causal=causal, window=window,
                             q_offset=q_offset)

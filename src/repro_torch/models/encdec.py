@@ -79,11 +79,14 @@ def encoder_forward(model: EncDec, frames: torch.Tensor, cfg) -> torch.Tensor:
     B, F, _ = frames.shape
     x = frames
     positions = _positions(B, F, x.device)
-    for p in model.enc_blocks:
+    def layer(x, p):
         h = L.norm(p.norm1, x, cfg.norm)
         x = x + L.attention_block(p.attn, h, positions, cfg, causal=False)
         h = L.norm(p.norm2, x, cfg.norm)
-        x = x + L.mlp_block(p.mlp, h, cfg.act)
+        return x + L.mlp_block(p.mlp, h, cfg.act)
+
+    for p in model.enc_blocks:
+        x = L.remat(layer, x, p)
     return L.norm(model.enc_norm, x, cfg.norm)
 
 
@@ -97,20 +100,26 @@ def encdec_forward(
     x = model.embed[tokens]
     positions = _positions(B, S, x.device)
     ks, vs = [], []
-    for p in model.dec_blocks:
+
+    def layer(x, p, enc):
         h = L.norm(p.norm1, x, cfg.norm)
         a = L.attention_block(
             p.attn, h, positions, cfg, causal=True, return_kv=collect_cache
         )
+        kv = None
         if collect_cache:
-            a, (k, v) = a
-            ks.append(k)
-            vs.append(v)
+            a, kv = a
         x = x + a
         h = L.norm(p.norm_c, x, cfg.norm)
         x = x + L.attention_block(p.cross, h, positions, cfg, causal=False, xkv=enc)
         h = L.norm(p.norm2, x, cfg.norm)
-        x = x + L.mlp_block(p.mlp, h, cfg.act)
+        return x + L.mlp_block(p.mlp, h, cfg.act), kv
+
+    for p in model.dec_blocks:
+        x, kv = L.remat(layer, x, p, enc)
+        if collect_cache:
+            ks.append(kv[0])
+            vs.append(kv[1])
     x = L.norm(model.final_norm, x, cfg.norm)
     logits = einsum("bsd,dv->bsv", x, model.lm_head)
     if collect_cache:
@@ -122,7 +131,8 @@ def encdec_forward(
 
 
 def encdec_loss(model: EncDec, batch, cfg):
-    """The forward value only (no gradient is taken in this port yet)."""
+    """Cross-entropy over the labels (differentiable; every layer of both
+    stacks rematerialised, as in the reference)."""
     logits = encdec_forward(model, batch["tokens"], batch["frames"], cfg)
     labels = batch["labels"]
     lf = logits.float()

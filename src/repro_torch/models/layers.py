@@ -16,9 +16,12 @@ Differences from the reference:
   only compute the local path;
 * ``flash_attention`` is the reference's own blocked attention in plain
   PyTorch (the reference computes it in jnp, outside any Pallas kernel),
-  with its blocks, its ``-1e30`` mask fill and its ``1e-30`` clamp. Without
-  a gradient its per-block ``jax.checkpoint`` does nothing and is left out;
-  its ``seq_shard`` only places query blocks and is left out too;
+  with its blocks, its ``-1e30`` mask fill and its ``1e-30`` clamp; its
+  ``seq_shard`` only places query blocks and is left out;
+* the reference's ``jax.checkpoint`` sites go through :func:`remat`
+  (``torch.utils.checkpoint``, non-reentrant), which checkpoints only while
+  grad is enabled: serving under ``torch.inference_mode()`` runs each body
+  once, as before;
 * ``torch.einsum`` takes one dtype, so :func:`einsum` promotes its operands
   as ``jnp.einsum`` does; ``preferred_element_type=float32`` becomes an
   einsum of float32 operands (a product of two bf16 values is exact in
@@ -39,7 +42,7 @@ from torch import nn
 
 from repro_torch import compat, perf_flags
 from repro_torch.compat import P
-from repro_torch.sharding import current_topology
+from repro_torch.sharding import current_topology, use_topology
 
 Device = Union[torch.device, str]
 
@@ -76,6 +79,26 @@ def einsum(spec: str, *operands: torch.Tensor) -> torch.Tensor:
     ``jnp.einsum`` promotes them."""
     dt = functools.reduce(torch.promote_types, (o.dtype for o in operands))
     return torch.einsum(spec, *(o.to(dt) for o in operands))
+
+
+def remat(fn, *args):
+    """``jax.checkpoint(fn)(*args)``: while grad is enabled, ``fn``'s
+    activations are dropped after the forward and recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant); without grad, ``fn(*args)``.
+    The recomputation runs under the topology and the bound mesh axes of the
+    forward, whichever thread autograd runs it on."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    topo = current_topology()
+    meshes = compat.bound_meshes()
+
+    def again(*a):
+        with use_topology(topo), compat.bind_meshes(meshes):
+            return fn(*a)
+
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(again, *args, use_reentrant=False)
 
 
 def einsum_f32(spec: str, *operands: torch.Tensor) -> torch.Tensor:
@@ -318,7 +341,8 @@ def flash_attention(
         l = torch.zeros((B, Kh, G, q_block), dtype=torch.float32, device=dev)
         o = torch.zeros((B, Kh, G, q_block, D), dtype=torch.float32, device=dev)
         for ki in range(nk):
-            mb, lb, ob = block(qb, qpos, kp[:, ki], vp[:, ki], k_pos[ki], k_valid[ki])
+            mb, lb, ob = remat(block, qb, qpos, kp[:, ki], vp[:, ki],
+                               k_pos[ki], k_valid[ki])
             mn = torch.maximum(m, mb)
             c1 = torch.exp(m - mn)
             c2 = torch.exp(mb - mn)

@@ -44,7 +44,7 @@ from repro_torch.compat import P
 from repro_torch.core import SSD, dist_exscan
 from repro_torch.core.trees import tree_map
 from repro_torch.kernels.ops import prefix_scan
-from repro_torch.models.layers import const, einsum, param
+from repro_torch.models.layers import const, einsum, param, remat
 from repro_torch.sharding import current_topology, shard
 
 _CONV_WIDTH = 4
@@ -158,14 +158,19 @@ def _ssd_chunked(
     # within-chunk cumulative log decay: K3 on the card
     seg = _segment_scan(dAc)
 
-    scores = einsum("bcin,bcjn->bcij", Ccc, Bcc)
-    Lmat = torch.exp(
-        torch.clamp(seg[:, :, :, None, :] - seg[:, :, None, :, :], -60.0, 0.0)
-    )  # (B,c,i,j,H)
-    ii = torch.arange(Q, device=xs.device)
-    causal = (ii[:, None] >= ii[None, :]).to(scores.dtype)
-    W = scores[..., None] * Lmat * causal[None, None, :, :, None]
-    y_intra = einsum("bcijh,bcjhp->bcihp", W, xbc_)
+    def intra(Ccc, Bcc, seg, xbc_):
+        scores = einsum("bcin,bcjn->bcij", Ccc, Bcc)
+        Lmat = torch.exp(
+            torch.clamp(seg[:, :, :, None, :] - seg[:, :, None, :, :],
+                        -60.0, 0.0)
+        )  # (B,c,i,j,H)
+        ii = torch.arange(Q, device=xs.device)
+        causal = (ii[:, None] >= ii[None, :]).to(scores.dtype)
+        W = scores[..., None] * Lmat * causal[None, None, :, :, None]
+        return einsum("bcijh,bcjhp->bcihp", W, xbc_)
+
+    # the (B, c, Q, Q, H) decay matrix is recomputed in the backward
+    y_intra = remat(intra, Ccc, Bcc, seg, xbc_)
 
     # chunk summary states: S_c = sum_j decay_to_end_j * xb_j (x) B_j
     decay_end = torch.exp(seg[:, :, -1:, :] - seg)   # (B,c,Q,H)
@@ -345,7 +350,12 @@ def mamba_mixer(
     return mapped(x)
 
 
-def init_mamba_state(cfg, batch: int, dtype=torch.float32, device="cpu"):
+def init_mamba_state(cfg, batch: int, dtype=torch.float32, device=None):
+    """Zero decode state {ssm, conv_x, conv_bc} on ``device``: the card
+    unless the caller names another; without a card the default raises."""
+    from repro_torch.models.model import model_device
+
+    device = model_device(device)
     H, Pd, N = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
     return {
         "ssm": torch.zeros((batch, H, Pd, N), dtype=dtype, device=device),

@@ -17,9 +17,13 @@ Caches are the reference's nested dicts, stacked over layers in the same
 layout, so a cache from ``lm_prefill`` feeds ``lm_decode_step`` as in the
 reference.
 
-The reference rematerialises every layer (``jax.checkpoint`` through
-``_remat`` / ``_name_out``) for training. Without a gradient that does
-nothing, so the port leaves it out; the training slice brings it back.
+Every layer is rematerialised for training, as the reference's
+``_remat`` does: :func:`repro_torch.models.layers.remat`
+(``torch.utils.checkpoint``) while grad is enabled, nothing under
+``torch.inference_mode()``. ``remat_policy=save_block_outputs`` keeps each
+block's output (the reference's ``_name_out``): the port checkpoints each
+block on its own instead of the layer whole, so the backward recomputes one
+block at a time and never re-runs another block's collectives.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch import perf_flags
 from repro_torch.core.trees import tree_map
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
@@ -37,6 +42,28 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.layers import einsum, param
 
 Params = Dict[str, Any]
+
+
+def _save_blocks() -> bool:
+    return perf_flags.FLAGS.remat_policy == "save_block_outputs"
+
+
+def _remat(fn, *args):
+    """``_remat(fn)(*args)``: the layer checkpointed whole, or, under
+    ``save_block_outputs``, run as is with each block checkpointed by
+    :func:`_block_out`."""
+    if _save_blocks():
+        return fn(*args)
+    return L.remat(fn, *args)
+
+
+def _block_out(fn, *args):
+    """One block (norm + mixer or FFN) whose output the reference names
+    ``block_out``: checkpointed on its own under ``save_block_outputs``
+    (its output is kept, its inside recomputed), else run as is."""
+    if _save_blocks():
+        return L.remat(fn, *args)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -150,19 +177,18 @@ def _maybe_ffn(p: Block, x: torch.Tensor, cfg):
     """Norm + FFN residual, skipped entirely for FFN-less blocks (mamba2)."""
     if p.moe is None and p.mlp is None:
         return x, _zero(x.device), _zero(x.device)
-    h = L.norm(p.norm2, x, cfg.norm)
-    f, lb, z = _ffn(p, h, cfg)
+    f, lb, z = _block_out(
+        lambda x: _ffn(p, L.norm(p.norm2, x, cfg.norm), cfg), x)
     return x + f, lb, z
 
 
 def _attn_block_fwd(p, x, positions, cfg, window, positions3=None,
                     causal=True, collect=False):
-    h = L.norm(p.norm1, x, cfg.norm)
-    a = L.attention_block(
-        p.attn, h, positions, cfg,
+    a = _block_out(lambda x: L.attention_block(
+        p.attn, L.norm(p.norm1, x, cfg.norm), positions, cfg,
         causal=causal, window=window, positions3=positions3,
         return_kv=collect,
-    )
+    ), x)
     kv = None
     if collect:
         a, kv = a
@@ -172,8 +198,9 @@ def _attn_block_fwd(p, x, positions, cfg, window, positions3=None,
 
 
 def _mamba_block_fwd(p, x, cfg, seq_parallel):
-    h = L.norm(p.norm1, x, cfg.norm)
-    a, cache = M.mamba_mixer(p.mamba, h, cfg, seq_parallel=seq_parallel)
+    a, cache = _block_out(lambda x: M.mamba_mixer(
+        p.mamba, L.norm(p.norm1, x, cfg.norm), cfg,
+        seq_parallel=seq_parallel), x)
     x = x + a
     x, lb, z = _maybe_ffn(p, x, cfg)
     return x, lb, z, cache
@@ -216,22 +243,29 @@ def lm_forward(
     if cfg.family == "hybrid":
         per_period = []
         for pp in model.periods:
-            kv = None
-            mcaches = []
-            for i, sk in enumerate(_sub_keys(pp)):
-                p = pp[sk]
-                if i == 0:
-                    x, lb, z, kv = _attn_block_fwd(
-                        p, x, positions, cfg, cfg.sliding_window,
-                        collect=collect_cache,
-                    )
-                else:
-                    x, lb, z, mc = _mamba_block_fwd(p, x, cfg, False)
-                    mcaches.append(mc)
-                lb_sum, z_sum = lb_sum + lb, z_sum + z
-            if collect_cache:
-                per_period.append(
-                    {"k": kv[0], "v": kv[1], "mamba": _stack(mcaches)})
+            def period_fwd(x, pp=pp):
+                lbs, zs = _zero(x.device), _zero(x.device)
+                kv = None
+                mcaches = []
+                for i, sk in enumerate(_sub_keys(pp)):
+                    p = pp[sk]
+                    if i == 0:
+                        x, lb, z, kv = _attn_block_fwd(
+                            p, x, positions, cfg, cfg.sliding_window,
+                            collect=collect_cache,
+                        )
+                    else:
+                        x, lb, z, mc = _mamba_block_fwd(p, x, cfg, False)
+                        mcaches.append(mc)
+                    lbs, zs = lbs + lb, zs + z
+                cache = None
+                if collect_cache:
+                    cache = {"k": kv[0], "v": kv[1], "mamba": _stack(mcaches)}
+                return x, lbs, zs, cache
+
+            x, lb, z, cache = _remat(period_fwd, x)
+            lb_sum, z_sum = lb_sum + lb, z_sum + z
+            per_period.append(cache)
         if collect_cache:
             caches = _stack(per_period)
     else:
@@ -239,15 +273,19 @@ def lm_forward(
         per_layer = []
         for p, flag in zip(model.blocks, flags.tolist()):
             if cfg.family == "ssm":
-                x, lb, z, mc = _mamba_block_fwd(p, x, cfg, seq_par)
-                cache = {"mamba": mc}
+                def layer_fwd(x, p=p):
+                    x, lb, z, mc = _mamba_block_fwd(p, x, cfg, seq_par)
+                    return x, lb, z, ({"mamba": mc} if collect_cache else None)
             else:
-                window = _window_for(cfg, flag)
-                x, lb, z, kv = _attn_block_fwd(
-                    p, x, positions, cfg, window, positions3=positions3,
-                    collect=collect_cache,
-                )
-                cache = {"k": kv[0], "v": kv[1]} if collect_cache else None
+                def layer_fwd(x, p=p, window=_window_for(cfg, flag)):
+                    x, lb, z, kv = _attn_block_fwd(
+                        p, x, positions, cfg, window, positions3=positions3,
+                        collect=collect_cache,
+                    )
+                    return x, lb, z, ({"k": kv[0], "v": kv[1]}
+                                      if collect_cache else None)
+
+            x, lb, z, cache = _remat(layer_fwd, x)
             lb_sum, z_sum = lb_sum + lb, z_sum + z
             per_layer.append(cache)
         if collect_cache:
@@ -262,7 +300,8 @@ def lm_forward(
 
 def lm_loss(model: LM, batch, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: {tokens (B,S), labels (B,S), [vision_embeds, positions3]}.
-    The forward value only (no gradient is taken in this port yet)."""
+    Differentiable: the training path takes its gradient with respect to
+    the module's parameters (every layer rematerialised)."""
     logits, aux = lm_forward(
         model,
         batch["tokens"],

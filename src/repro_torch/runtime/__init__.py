@@ -1,9 +1,7 @@
 """Runtime fault handling of the PyTorch port (counterpart of
 ``repro.runtime``): message-level chaos injection, failure injection and
-re-mesh planning, and step-time straggler detection.
-
-The reference's ``__init__`` also exports its trainer (``train_loop``),
-which the port does not have yet; only the ported modules are exported.
+re-mesh planning, step-time straggler detection, and the fault-tolerant
+trainer (:class:`~repro_torch.runtime.train_loop.Trainer`).
 """
 
 from repro_torch.runtime.fault import (
@@ -14,10 +12,22 @@ from repro_torch.runtime.fault import (
 )
 from repro_torch.runtime.straggler import StragglerDetector
 
+
+def __getattr__(name):
+    # the trainer imports the models and the step builders, which import
+    # this package: load it on first use
+    if name in ("Trainer", "TrainerConfig"):
+        from repro_torch.runtime import train_loop
+
+        return getattr(train_loop, name)
+    raise AttributeError(name)
+
 __all__ = [
     "FailureInjector",
     "SimulatedFailure",
     "StragglerDetector",
+    "Trainer",
+    "TrainerConfig",
     "plan_remesh",
     "rescale_batch",
 ]

@@ -1,4 +1,5 @@
-"""Topology context of the model code (port of ``repro.sharding``)."""
+"""Topology context of the model code and the partition-spec rules (port of
+``repro.sharding``)."""
 
 from repro_torch.sharding.specs import (
     Topology,

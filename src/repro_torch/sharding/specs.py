@@ -109,6 +109,25 @@ def make_topology(mesh: Optional[Mesh]) -> Topology:
     return Topology(mesh=mesh, batch_axes=tuple(names), model_axis=None)
 
 
+def plan_spec(layout, axis_names, ndim: int = 1) -> P:
+    """The block spec realising a collective plan's data layout.
+
+    ``layout`` is anything with an ``order`` attribute (a
+    :class:`repro_torch.offload.planner.PlanLayout` or ``CollectivePlan``).
+    Dim 0 is split across the mesh axes named in ``axis_names`` *in the
+    plan's logical order*: block ``i`` of a logical-rank-ordered value lands
+    on the rank whose logical rank is ``i``."""
+    order = tuple(layout.order)
+    if len(order) != len(axis_names):
+        raise ValueError(
+            f"layout order {order!r} does not cover axes "
+            f"{tuple(axis_names)!r}"
+        )
+    names = tuple(axis_names[i] for i in order)
+    entry = names[0] if len(names) == 1 else names
+    return P(entry, *([None] * (max(ndim, 1) - 1)))
+
+
 def shard(x, *logical: Optional[str]):
     """A sharding constraint in logical axes: the identity, with a mesh or
     without (see the module docstring)."""

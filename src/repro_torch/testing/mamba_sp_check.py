@@ -6,16 +6,19 @@ final SSD state must match the unsharded mixer. Inter-chunk state crosses
 shards through the offloaded scan collective, and the conv halo through a
 neighbour ``ppermute``. The reference's three numeric checks, at its
 tolerances: output and final SSD state within atol = rtol = 2e-3, conv
-tail within 1e-4. Its fourth, a gradient through ``dist_exscan``, waits for
-the training slice (the port's models take no gradient yet): it is
-reported, not counted.
+tail within 1e-4. Its fourth, a gradient through ``dist_exscan``: the
+gradient of ``sum(y * y)`` with respect to the mixer's parameters, taken
+through the SP mixer on the co-resident mesh, must be finite and nonzero
+(the reference's check) and, beyond the reference, within ``GRAD_TOL`` of
+each leaf's largest magnitude of the unsharded mixer's gradient.
 
     python -m repro_torch.testing.mamba_sp_check [--device cpu|cuda] [--gloo WORKDIR]
 
 runs the reduced Mamba2-130m mixer at ``(B, S) = (2, 128)`` (8 shards of
 16 tokens, chunk 16) on a co-resident ``(1, 8)`` mesh on the device (the
-card unless ``--device cpu``); with ``--gloo`` also in 8 processes joined
-in one gloo group on the CPU, held bitwise against the co-resident run.
+card unless ``--device cpu``); with ``--gloo`` also its forward in 8
+processes joined in one gloo group on the CPU, held bitwise against the
+co-resident run (a process group's collectives carry no gradient).
 Prints ALL-OK.
 """
 
@@ -33,6 +36,9 @@ SHAPE = (2, 128)
 #: (atol, rtol) of the output and the final SSD state; the conv tail's atol
 TOL = 2e-3
 CONV_TOL = 1e-4
+#: the SP gradient's gap to the unsharded one, relative to each leaf's
+#: largest magnitude
+GRAD_TOL = 2e-3
 
 
 def make_inputs(cfg, device, shape=SHAPE, seed: int = 0):
@@ -79,6 +85,30 @@ def compare(torch, y_ref, cache_ref, y_sp, cache_sp) -> List[tuple]:
                              atol=CONV_TOL, rtol=0.0)),
          err(cache_sp["conv_x"], cache_ref["conv_x"])),
     ]
+
+
+def mixer_grads(torch, p, fn):
+    """``{name: d sum(y*y) / d param}`` of the mixer ``p`` through ``fn()``
+    (which returns ``(y, cache)``)."""
+    p.requires_grad_(True)
+    names, params = zip(*p.named_parameters())
+    with torch.enable_grad():
+        y, _ = fn()
+        grads = torch.autograd.grad((y * y).sum(), params)
+    return dict(zip(names, grads))
+
+
+def compare_grads(torch, g_sp, g_ref):
+    """The fourth check: (name, ok, worst leaf's gap over its largest
+    magnitude) for a finite, nonzero SP gradient held to the unsharded
+    one."""
+    total = sum(float(g.double().abs().sum()) for g in g_sp.values())
+    finite = all(bool(torch.isfinite(g).all()) for g in g_sp.values())
+    worst = max(float((g_sp[k].double() - g.double()).abs().max())
+                / max(float(g.double().abs().max()), 1e-30)
+                for k, g in g_ref.items())
+    return [("grad through dist_exscan", finite and total > 0.0, total),
+            ("grad == unsharded mixer's", worst <= GRAD_TOL, worst)]
 
 
 def _reduced_cfg():
@@ -129,6 +159,10 @@ def main(argv: List[str]) -> int:
     mesh = compat.Mesh(*MESH, device=device)
     y_sp, cache_sp = sp_mixer(p, x, cfg, mesh)
     checks = compare(torch, y_ref, cache_ref, y_sp, cache_sp)
+    checks += compare_grads(
+        torch, mixer_grads(torch, p, lambda: sp_mixer(p, x, cfg, mesh)),
+        mixer_grads(torch, p, lambda: mamba_mixer(p, x, cfg,
+                                                  seq_parallel=False)))
     if args.gloo:
         got = run_gloo(args.gloo)
         want = {"y": y_sp, **cache_sp}
@@ -138,8 +172,6 @@ def main(argv: List[str]) -> int:
                            for k in want)))
     for name, ok, err in checks:
         print(f"{name}:", "OK" if ok else "FAIL", err)
-    print("grad through dist_exscan: WAITS for the training slice (the "
-          "port's models take no gradient yet); not counted")
     if all(ok for _, ok, _ in checks):
         print("ALL-OK")
         return 0

@@ -162,11 +162,13 @@ def test_sp_mixer_scans_every_shard_in_one_k3_launch(mamba, monkeypatch):
 
 
 def test_mamba_sp_check_prints_all_ok(tmp_path):
-    """The check module on the CPU: the reference check's first three
-    comparisons, co-resident and in an 8-process gloo group (bitwise)."""
+    """The check module on the CPU: the reference check's four
+    comparisons (the fourth, the gradient through ``dist_exscan``, also
+    held to the unsharded mixer's), co-resident, and the forward in an
+    8-process gloo group (bitwise)."""
     out = run_module("repro_torch.testing.mamba_sp_check", "--device", "cpu",
                      "--gloo", str(tmp_path))
-    assert out.count(": OK") == 4 and "WAITS for the training slice" in out
+    assert out.count(": OK") == 6 and "grad through dist_exscan: OK" in out
 
 
 # ---------------------------------------------------------------------------
