@@ -206,7 +206,30 @@ non-zero without printing a result:
               ``engine.compile`` / phase span -> ``phase_round_count``
               round spans, the merged host+device trace aligned, the
               engine's series in the Prometheus text.
-16. times   — every kernel, its plain version and one PyTorch library call
+16. roofline — the roofline of a whole model call
+              (``repro_torch.roofline``): Mamba2-130m at full width in bf16,
+              the (8, 4096) ``lm_forward`` of ``times_serve_forward`` and one
+              training step at (8, 1024) as ``launch.train`` builds it, each
+              counted once under ``op_cost.CostMode`` (aten ops priced by the
+              reference's rules, K3 charged at its own cost where it
+              launches) and then run again, uncounted, under the profiler:
+              FLOPs, bytes, the compute and memory terms, the bound and its
+              bottleneck, ``model_flops``, the device time, ``bound_share =
+              t_bound / device_s`` (at most 1.05: a bound above the
+              measured time is a wrong count) and ``mfu = model_flops /
+              (device_s x bf16 peak)``; K3's charges equal to its launches
+              in the counted run (24; 48 forward and 24 back to front) and
+              each at ``kernel_cost``'s bytes for the model's segment-scan
+              shape. It and ``dryrun`` run after ``profile``: right after
+              ``train``, they left ``profile``'s two sessions in a row
+              without a device event.
+17. dryrun   — ``launch.dryrun.run_cell`` for Mamba2-130m at train_4k,
+              prefill_32k, decode_32k and long_500k on one pod's
+              co-resident (16, 16) mesh on the ``meta`` device: every key of
+              the reference's record, 256 chips, FLOPs and bytes above 0, a
+              named bottleneck, a useful share in (0, 1.05]; each record's
+              roofline and seconds.
+18. times   — every kernel, its plain version and one PyTorch library call
               at the main and entry shapes: device time from
               ``torch.profiler`` and the per-call time with CUDA events
               (host overhead included), beside the least time the card's
@@ -238,21 +261,6 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
 
-#: HBM bandwidth in bytes/s from NVIDIA's data sheets, by card name
-_MEM_BW = (
-    ("H200", 4.8e12),
-    ("H100 PCIe", 2.0e12),
-    ("H100", 3.35e12),
-)
-
-#: dense peak rate in FLOP/s by card name and dtype (NVIDIA's data sheets;
-#: float32 is the CUDA cores' rate, TF32 stays off)
-_PEAK_FLOPS = (
-    ("H100 PCIe", {"bfloat16": 756e12, "float16": 756e12, "float32": 51e12}),
-    ("H100", {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}),
-    ("H200", {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}),
-)
-
 CSRC = "src/repro_torch/kernels/csrc"
 #: the kernel of each K1 / K2 path, as the profiler and ptxas name it
 PATH_KERNELS = {"register": "k1_register_kernel", "column": "k1_column_kernel",
@@ -281,18 +289,32 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def roofline():
+    """The port's roofline analysis: the card's data-sheet peaks (HBM
+    bytes/s, dense FLOP/s by dtype, TF32 off) and each kernel's cost, the
+    one count behind every bound this script prints."""
+    return importlib.import_module("repro_torch.roofline.analysis")
+
+
 def mem_bandwidth(name: str) -> float:
-    for key, bw in _MEM_BW:
-        if key in name:
-            return bw
-    raise RuntimeError(f"no memory bandwidth on record for {name!r}")
+    return roofline().mem_bandwidth(name)
 
 
 def peak_flops(name: str, dtype) -> float:
-    for key, rates in _PEAK_FLOPS:
-        if key in name:
-            return rates[str(dtype).replace("torch.", "")]
-    raise RuntimeError(f"no peak rate on record for {name!r}")
+    return roofline().peak_flops(name, dtype)
+
+
+def kernel_bytes(kernel: str, **shape) -> float:
+    """Bytes one call of ``kernel`` must move (each input read once, each
+    output written once), from ``roofline().kernel_cost``."""
+    return roofline().kernel_cost(kernel, **shape).bytes
+
+
+def scan_bytes(x) -> float:
+    """K3's bytes for a scan of ``x`` along its last axis."""
+    L = x.shape[-1]
+    return kernel_bytes("k3", rows=x.numel() // max(L, 1), length=L,
+                        dtype=x.dtype)
 
 
 def kernel_modules():
@@ -1461,16 +1483,6 @@ def phase_onchip(torch, device):
     })
 
 
-def visible_pairs(Sq, Skv, *, causal, window, q_offset) -> int:
-    """(query, key) pairs the masks leave visible."""
-    total = 0
-    for q in range(q_offset, q_offset + Sq):
-        lo = max(0, q - window + 1) if window > 0 else 0
-        hi = min(Skv - 1, q) if causal else Skv - 1
-        total += max(0, hi - lo + 1)
-    return total
-
-
 class EntryCase:
     """One call of an entry point at a full-width shape, with its plain
     version, a PyTorch library call that computes the same function (or
@@ -1513,7 +1525,7 @@ def entry_cases(torch, device):
             lambda: ops.prefix_scan(x, op=op, exclusive=exclusive),
             lambda: ref.ref_prefix_scan(x, op, exclusive=exclusive),
             library, scan_tolerance(torch, op, x.dtype),
-            2 * x.numel() * x.element_size(), head=head,
+            scan_bytes(x), head=head,
         ))
 
     # Mamba2-130m prefill: within-chunk log-decay scan (B, nc, H, Q) =
@@ -1548,7 +1560,9 @@ def entry_cases(torch, device):
     k4 = kernel_modules()["k4"]
     for x, y, h in ((a, b, None), (a, b, h0),
                     (a.bfloat16(), b.bfloat16(), None)):
-        nbytes = (3 * x.numel() + (0 if h is None else h.numel())) * x.element_size()
+        nbytes = kernel_bytes("k4", rows=shape[0], time=shape[1],
+                              width=shape[2], dtype=x.dtype,
+                              h0=h is not None)
         cases.append(EntryCase(
             "k4", f"mamba2_130m ssd (8,4096,1536) {dtype_name(x.dtype)} "
                   f"h0={h is not None}",
@@ -1589,13 +1603,14 @@ def entry_cases(torch, device):
             return F.scaled_dot_product_attention(q4, k4, v4, **sdpa)
 
         plan = k5.plan_launch(BH, Sq, Skv, D, dtype, **kw)
+        cost = roofline().kernel_cost("k5", bh=BH, sq=Sq, skv=Skv, d=D,
+                                      dtype=dtype, **kw)
         cases.append(EntryCase(
             "k5", label,
             lambda q=q, k=k, v=v, kw=kw: ops.flash_attention(q, k, v, **kw),
             lambda q=q, k=k, v=v, kw=kw: ref.ref_flash_attention(q, k, v, **kw),
-            library, FLASH_TOL[dtype_name(dtype)],
-            (2 * q.numel() + 2 * k.numel()) * q.element_size(),
-            flops=4 * BH * D * visible_pairs(Sq, Skv, **kw), dtype=dtype,
+            library, FLASH_TOL[dtype_name(dtype)], cost.bytes,
+            flops=cost.flops, dtype=dtype,
             head=not cases or cases[-1].key != "k5",
             launches=plan.launches, path=plan.path,
         ))
@@ -2545,7 +2560,9 @@ def paths_in_turns(torch, calls, iters):
 def compare_row(torch, key, coll, p, nb, x, times, library, card, iters):
     """One same-run comparison row of two paths, beside the library call
     and the bytes bound."""
-    nbytes = 2 * x.numel() * x.element_size()  # read once, write once
+    nbytes = kernel_bytes(  # read once, written once
+        key, phase="TOTAL" if coll == "ALLREDUCE" else "SCAN", p=p,
+        numel=x.numel(), dtype=x.dtype)
     bound_ms = nbytes / mem_bandwidth(card) * 1e3
     return {
         "kernel": key, "coll": coll, "p": p, "bytes_per_rank": nb,
@@ -2787,7 +2804,8 @@ def phase_times(torch, device, card, launches):
         lat = sorted(lat[3:])
         timing = "profiler" if dev["ms"] is not None else "events"
         times = dev if timing == "profiler" else event
-        nbytes = 2 * x.numel() * x.element_size()  # read once, write once
+        nbytes = kernel_bytes("k1", phase=kind.name, p=p, numel=x.numel(),
+                              dtype=x.dtype)  # read once, written once
         row = {
             "coll": coll, "p": p, "bytes_per_rank": nb,
             **times, "timing": timing,
@@ -2932,7 +2950,8 @@ def phase_times_k4(torch, device, card):
         del want
         torch.cuda.synchronize()
         times = paths_in_turns(torch, calls, iters)
-        nbytes = 3 * a.numel() * a.element_size()
+        nbytes = kernel_bytes("k4", rows=shape[0], time=shape[1],
+                              width=shape[2], dtype=dtype)
         bound_ms = nbytes / mem_bandwidth(card) * 1e3
         same = lambda: torch.add(a, b, out=out)  # noqa: E731
         row = {
@@ -3473,7 +3492,7 @@ def times_serve_forward(torch, device, smi, mods):
                                       else dev["k3_scan_kernel"] / cfg.num_layers),
         "k3_ms_alone": alone, "k3_shape": [8, 16, 24, 256],
         # read once, written once, at the card's memory rate
-        "k3_bound_ms": 2 * seg.numel() * seg.element_size()
+        "k3_bound_ms": scan_bytes(seg)
         / mem_bandwidth(torch.cuda.get_device_name(0)) * 1e3,
         "card": smi,
     }
@@ -4270,7 +4289,7 @@ def phase_times_train(torch, device, smi, card):
                     name=KERNELS["k3"][3]),
                 "event_ms": time_ms(
                     torch, lambda: k3.scan_rows(x, reverse=rev), 100)}
-        bound = 2 * x.numel() * x.element_size() / mem_bandwidth(card) * 1e3
+        bound = scan_bytes(x) / mem_bandwidth(card) * 1e3
         rtol, atol = scan_tolerance(torch, "add", x.dtype)
         scan["reverse"]["max_abs_err"] = assert_match(
             torch, k3.scan_rows(x, reverse=True),
@@ -4322,6 +4341,227 @@ def phase_times_train(torch, device, smi, card):
     return line
 
 
+# ---------------------------------------------------------------------------
+# the roofline: the op count of a whole model call, K3 charged where it
+# launches, beside the same call's device time; and the dry run
+# ---------------------------------------------------------------------------
+
+#: the full-width Mamba2-130m training step of the roofline phase: (B, S),
+#: ``TRAIN_RUN``'s
+ROOFLINE_STEP = (8, 1024)
+#: a count's bound may not exceed the call's measured device time
+ROOFLINE_BOUND_SHARE_MAX = 1.05
+#: the dry run's cells: Mamba2-130m at every shape, one pod
+DRYRUN_CELLS = (("mamba2-130m", "train_4k"), ("mamba2-130m", "prefill_32k"),
+                ("mamba2-130m", "decode_32k"), ("mamba2-130m", "long_500k"))
+#: the reference's dry-run record keys (``src/repro/launch/dryrun.py:75-105``)
+DRYRUN_KEYS = {"arch", "shape", "mesh", "n_chips", "kind", "lower_s",
+               "compile_s", "memory", "roofline", "collectives",
+               "raw_cost_analysis", "model_flops_total", "useful_flops_ratio",
+               "params_total", "params_active", "opt"}
+
+
+def roofline_calls(torch, device):
+    """The roofline's two calls of Mamba2-130m at full width in bf16, each
+    built when reached and freed after: the (8, 4096) ``lm_forward`` of
+    ``times_serve_forward`` (weights from seed 23) and one training step at
+    ``ROOFLINE_STEP`` as ``launch.train`` builds it (seed 0). Yields
+    ``(call, fn, model_flops, K3 (forward, reverse) launches predicted,
+    K3's shape)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.launch.steps import batch_to, build_train_step, trainable
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.sharding import Topology
+
+    an = roofline()
+    cfg = get_config("mamba2-130m")
+    api = build_model(cfg)
+    L, H, Q = cfg.num_layers, cfg.ssm_num_heads, cfg.ssm_chunk
+    model = api.init(torch.Generator().manual_seed(23), device=device)
+    B, S = SERVE_FORWARD
+    tokens = model_batch(torch, cfg, B, S, device, seed=23)["tokens"]
+
+    def forward():
+        with torch.inference_mode():
+            return api.forward(model, {"tokens": tokens})[0]
+
+    yield ("forward", forward,
+           an.model_flops(cfg, ShapeConfig("roofline", S, B, "prefill"),
+                          "prefill"),
+           (L, 0), {"rows": B * (S // Q) * H, "length": Q,
+                    "dtype": torch.float32})
+    del model, forward
+    torch.cuda.empty_cache()
+
+    B, S = ROOFLINE_STEP
+    shape = ShapeConfig("roofline", S, B, "train")
+    step_fn, _, _ = build_train_step(
+        api, Topology(mesh=None), shape,
+        AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=TRAIN_RUN[0]))
+    model = trainable(api.init(torch.Generator().manual_seed(0),
+                               device=device))
+    state = [model, init_opt_state(model)]
+    del model
+    batch = batch_to(next(batches(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B))), device)
+
+    def step():
+        state[0], state[1], metrics = step_fn(state[0], state[1], batch)
+        loss = float(metrics["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"roofline train_step: loss {loss}")
+        return loss
+
+    yield ("train_step", step, an.model_flops(cfg, shape, "train"),
+           (2 * L, L), {"rows": B * (S // Q) * H, "length": Q,
+                        "dtype": torch.float32})
+    del state, step
+    torch.cuda.empty_cache()
+
+
+def device_seconds(torch, fn):
+    """The device time of one run of ``fn``: the profiler's sum of every
+    device activity, after an untimed primer launch in the same session (a
+    session's first launch can leave no record); CUDA events around the
+    call when the trace holds no device time (then the span, idle gaps
+    included). Returns (seconds, how, wall ms)."""
+    primer = torch.zeros(1, device="cuda")
+
+    def primed():
+        primer.add_(1)
+        torch.cuda.synchronize()
+        fn()
+
+    wall_ms, table = kernel_times(torch, primed)
+    if table:
+        return sum(ms for ms, _ in table.values()) / 1e3, "profiler", wall_ms
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3, "events", wall_ms
+
+
+def phase_roofline(torch, device, smi, card):
+    """Each of :func:`roofline_calls`, after a warm-up, counted once under
+    ``CostMode`` and then run again, uncounted, under the profiler
+    (:func:`device_seconds`): FLOPs, bytes, the compute and memory terms,
+    the bound and its bottleneck, ``model_flops``, the device time,
+    ``bound_share = t_bound / device_s`` (at most
+    ``ROOFLINE_BOUND_SHARE_MAX``: a bound above the measured time is a
+    wrong count) and ``mfu = model_flops / (device_s x bf16 peak)``; K3's
+    charges equal to its launches in the counted run (forward, back to
+    front) and to the prediction, each at ``kernel_cost("k3", ...)`` of
+    the model's segment-scan shape."""
+    from repro_torch.roofline.op_cost import CostMode
+
+    an = roofline()
+    k3 = kernel_modules()["k3"]
+    peak = peak_flops(card, "bfloat16")
+    t0 = time.perf_counter()
+    rows = {}
+    for what, fn, mf, want_k3, k3_shape in roofline_calls(torch, device):
+        fn()                                  # warm-up
+        torch.cuda.synchronize()
+        before = (k3.launches, k3.reverse_launches)
+        t1 = time.perf_counter()
+        with CostMode() as mode:
+            fn()
+            torch.cuda.synchronize()
+        count_s = time.perf_counter() - t1
+        made = (k3.launches - before[0] - (k3.reverse_launches - before[1]),
+                k3.reverse_launches - before[1])
+        charges = [c for c in mode.charges if c.kind == "k3"]
+        charged = (sum(not c.shape["reverse"] for c in charges),
+                   sum(bool(c.shape["reverse"]) for c in charges))
+        if not charged == made == want_k3:
+            raise AssertionError(
+                f"roofline {what}: K3 charges (forward, reverse) {charged}, "
+                f"launches {made}, {want_k3} predicted")
+        one = an.kernel_cost("k3", **k3_shape)
+        for c in charges:
+            got = {k: c.shape[k] for k in k3_shape}
+            if got != k3_shape or c.bytes != one.bytes:
+                raise AssertionError(
+                    f"roofline {what}: a K3 charge of {got}, {c.bytes} B; "
+                    f"{k3_shape}, {one.bytes} B predicted")
+        roof = an.analyze(mode.cost, 1, card=an.card_for(card))
+        device_s, timing, wall_ms = device_seconds(torch, fn)
+        share = roof.t_bound / device_s
+        rows[what] = {
+            "call": what, "flops": mode.cost.flops, "bytes": mode.cost.bytes,
+            "t_compute_s": roof.t_compute, "t_memory_s": roof.t_memory,
+            "t_bound_s": roof.t_bound, "bottleneck": roof.bottleneck,
+            "model_flops": mf, "useful_flops_ratio": mf / mode.cost.flops,
+            "device_s": device_s, "timing": timing, "wall_ms": wall_ms,
+            "bound_share": share, "mfu": mf / (device_s * peak),
+            "k3_charges": list(charged), "k3_launches": list(made),
+            "k3_charge_bytes": one.bytes, "unpriced": mode.unpriced,
+            # where the counted bytes are: the eight heaviest ops
+            "top_bytes": sorted(((name, fb[1]) for name, fb in
+                                 mode.by_op.items()),
+                                key=lambda nb: -nb[1])[:8],
+            "count_s": count_s, "card": smi}
+        emit({"phase": "roofline_call", **rows[what]})
+        if not 0 < share <= ROOFLINE_BOUND_SHARE_MAX:
+            raise AssertionError(
+                f"roofline {what}: bound {roof.t_bound:.4g} s over "
+                f"{device_s:.4g} s on the device ({share:.3f})")
+    emit({"phase": "roofline", "seconds": time.perf_counter() - t0,
+          "arch": "mamba2-130m", "dtype": "bfloat16",
+          "calls": {w: {k: r[k] for k in (
+              "flops", "bytes", "t_bound_s", "bottleneck", "device_s",
+              "bound_share", "mfu", "k3_charges")} for w, r in rows.items()},
+          "card": smi, "ok": True})
+    return rows
+
+
+def phase_dryrun(smi):
+    """``launch.dryrun.run_cell`` for ``DRYRUN_CELLS`` on one pod on the
+    ``meta`` device (no GPU time): every reference key, 256 chips, FLOPs
+    and bytes above 0, a named bottleneck, a useful share in (0, 1.05];
+    each record's roofline and seconds."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    cells = []
+    with tempfile.TemporaryDirectory() as out:
+        for arch, shape in DRYRUN_CELLS:
+            rec = dryrun.run_cell(arch, shape, "single", Path(out))
+            r = rec["roofline"]
+            bad = [
+                what for what, ok in (
+                    ("keys", set(rec) == DRYRUN_KEYS),
+                    ("n_chips", rec["n_chips"] == r["n_chips"] == 256),
+                    ("flops", r["flops_per_device"] > 0),
+                    ("bytes", r["bytes_per_device"] > 0),
+                    ("bottleneck", r["bottleneck"] in (
+                        "compute", "memory", "collective")),
+                    ("useful", 0 < rec["useful_flops_ratio"] <= 1.05))
+                if not ok]
+            if bad:
+                raise AssertionError(f"dryrun {arch} x {shape}: {bad}; {rec}")
+            cells.append({"arch": arch, "shape": shape,
+                          "seconds": rec["lower_s"], "roofline": r,
+                          "useful_flops_ratio": rec["useful_flops_ratio"],
+                          "collectives": rec["collectives"]["counts"],
+                          "memory": rec["memory"]})
+            emit({"phase": "dryrun_cell", **cells[-1]})
+    emit({"phase": "dryrun", "seconds": time.perf_counter() - t0,
+          "cells": [[c["arch"], c["shape"], c["seconds"],
+                     c["roofline"]["bottleneck"]] for c in cells],
+          "card": smi, "ok": True})
+    return cells
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -4356,6 +4596,11 @@ def main() -> int:
     phase_times_mesh(torch, device, smi)
     phase_times_train(torch, device, smi, card)
     phase_profile(torch, device)
+    # the roofline and the dry run after ``profile``: run right after
+    # ``train``, they left ``profile``'s two sessions in a row without a
+    # device event
+    roof = phase_roofline(torch, device, smi, card)
+    phase_dryrun(smi)
     k1 = phase_times(torch, device, card, launches)
     k2 = phase_times_spmd(torch, device, card, spmd_launches)
     onchip = phase_times_onchip(torch, card, entry_launches, cases)
@@ -4366,6 +4611,10 @@ def main() -> int:
     onchip[0]["serve_launches"] = serve["full"][0]["launches"]["k3"]
     onchip[0]["mesh_launches"] = mesh["k3_launches"]
     onchip[0]["train_launches"] = train["k3_launches_per_step"]
+    # K3's charges in the roofline's counted forward and training step,
+    # each equal to its launches there
+    onchip[0]["roofline_launches"] = {
+        call: row["k3_charges"] for call, row in roof.items()}
     k1["serve_launches"] = serve["tenancy"]["k1_launches"]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     emit({"kernels": [k1, k2, *onchip]})

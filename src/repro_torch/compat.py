@@ -42,6 +42,7 @@ bitwise.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -55,6 +56,7 @@ from repro_torch.core.trees import (
     tree_map,
     tree_unflatten,
 )
+from repro_torch.roofline import op_cost
 
 PyTree = Any
 Spec = "str | Sequence[str]"
@@ -731,10 +733,26 @@ def shard_map(
 # ---------------------------------------------------------------------------
 
 
+def _charged(kind: str, x: PyTree, axis_name: Spec):
+    """One collective of ``kind`` over ``axis_name``'s group under a
+    ``CostMode`` (:func:`repro_torch.roofline.op_cost.charged`): one rank's
+    payload bytes and the group's size; the fold or row gather that carries
+    it on co-resident ranks is no device arithmetic of the model's."""
+    if op_cost.active() is None:
+        return contextlib.nullcontext()
+    mesh, names = _group(axis_name)
+    ranks = mesh.size if mesh.coresident else 1
+    total = sum(a.numel() * a.element_size() for a in tree_leaves(x))
+    return op_cost.charged(
+        kind, payload=total // ranks, ranks=ranks,
+        group=int(np.prod([mesh.shape[mesh.axis(n)] for n in names])))
+
+
 def ppermute(x: PyTree, axis_name: str, perm) -> PyTree:
     """``lax.ppermute``: ``(source, destination)`` pairs along one axis; a
-    rank with no in-edge gets zeros."""
-    return mesh_of(axis_name).ranks.ppermute(x, axis_name, perm)
+    rank with no in-edge gets zeros. Counts as one collective-permute."""
+    with _charged("collective-permute", x, axis_name):
+        return mesh_of(axis_name).ranks.ppermute(x, axis_name, perm)
 
 
 def _group(axis_name: Spec) -> Tuple[Mesh, Tuple[str, ...]]:
@@ -748,11 +766,14 @@ def _group(axis_name: Spec) -> Tuple[Mesh, Tuple[str, ...]]:
 
 def _combined(x: PyTree, axis_name: Spec, op: Callable) -> PyTree:
     mesh, names = _group(axis_name)
-    return tree_map(lambda a: mesh.ranks.combine(a, names, op), x)
+    with _charged("all-reduce", x, axis_name):
+        return tree_map(lambda a: mesh.ranks.combine(a, names, op), x)
 
 
 def psum(x: PyTree, axis_name: Spec) -> PyTree:
-    """``lax.psum``: the sum over the group, added in group order."""
+    """``lax.psum``: the sum over the group, added in group order. It, and
+    :func:`pmax`, count as one all-reduce (:func:`pmean` as the psum and a
+    divide)."""
     return _combined(x, axis_name, torch.add)
 
 
@@ -779,7 +800,8 @@ def all_to_all(x: torch.Tensor, axis_name: Spec, split_axis: int,
     if not tiled:
         raise NotImplementedError("all_to_all(tiled=False) is not ported")
     mesh, names = _group(axis_name)
-    return mesh.ranks.all_to_all(x, names, split_axis, concat_axis)
+    with _charged("all-to-all", x, axis_name):
+        return mesh.ranks.all_to_all(x, names, split_axis, concat_axis)
 
 
 def region_rows(axis_name: str) -> int:

@@ -90,7 +90,8 @@ def split_multicast(perm: Perm) -> List[Perm]:
 class SpmdBackend(Backend):
     """Runs per rank inside :func:`repro_torch.compat.shard_map`; a permute
     is one exchange over the named axis's rank group (a row gather for
-    co-resident ranks, ``batch_isend_irecv`` between processes)."""
+    co-resident ranks, ``batch_isend_irecv`` between processes), one
+    :func:`repro_torch.compat.ppermute` a unique-source sub-permutation."""
 
     def __init__(self, axis_name: str, axis_size: "int | None" = None):
         from repro_torch import compat
@@ -110,9 +111,8 @@ class SpmdBackend(Backend):
 
         if not perm:
             return tree_map(torch.zeros_like, tree)
-        ranks = compat.mesh_of(self.axis_name).ranks
         parts = [
-            ranks.ppermute(tree, self.axis_name, sp)
+            compat.ppermute(tree, self.axis_name, sp)
             for sp in split_multicast(list(perm))
         ]
         out = parts[0]

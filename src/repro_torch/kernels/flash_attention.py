@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ref_flash_attention
+from repro_torch.roofline.op_cost import charged
 
 #: kernel launches since import (the main path's proof that it ran K5)
 launches = 0
@@ -213,8 +214,9 @@ def attention(
     causal: bool = True, window: int = 0, q_offset: int = 0,
 ) -> torch.Tensor:
     """Attention of ``(BH, Sq, D)`` queries over ``(BH, Skv, D)`` keys and
-    values: the plain version for CPU tensors, the CUDA kernels for CUDA
-    tensors (no fallback between the two)."""
+    values: the plain version for CPU (or ``meta``) tensors, the CUDA
+    kernels for CUDA tensors (no fallback between the two). Under a
+    ``CostMode`` a call counts as one K5 charge at K5's own cost."""
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
         raise ValueError(
             f"expected (BH, Sq, D) q and matching (BH, Skv, D) k, v; got "
@@ -226,9 +228,13 @@ def attention(
         raise ValueError("attention over zero keys")
     if q.device != k.device or q.device != v.device:
         raise ValueError("q, k and v must share one device")
-    if q.device.type == "cpu":
-        return ref_flash_attention(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "meta", "cuda"):
         raise ValueError(f"no flash kernel for device {q.device}")
-    return _launch(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    with charged("k5", bh=q.shape[0], sq=q.shape[1], skv=k.shape[1],
+                 d=q.shape[2], dtype=q.dtype, causal=causal, window=window,
+                 q_offset=q_offset):
+        if q.device.type != "cuda":
+            return ref_flash_attention(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
+        return _launch(q, k, v, causal=causal, window=window,
+                       q_offset=q_offset)

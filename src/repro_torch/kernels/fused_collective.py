@@ -61,6 +61,7 @@ from repro_torch.offload.planner import (
     _check_device,
     _zero_coord_mask,
 )
+from repro_torch.roofline.op_cost import charged
 
 PyTree = Any
 
@@ -499,20 +500,24 @@ def comm_phase(
     """Run one comm phase: the plain version for CPU tensors, the CUDA
     kernel on the path :func:`plan_launch` picks for CUDA tensors (no
     fallback between the two). ``path`` names a path to take instead, for a
-    comparison of the two."""
+    comparison of the two. Under a ``CostMode`` a call counts as one K1
+    charge at K1's own cost."""
     leaves = tree_leaves(tree)
-    if not leaves or leaves[0].device.type == "cpu":
-        return comm_phase_plain(kind, p, op, tree, inclusive=inclusive)
-    if leaves[0].device.type != "cuda":
+    if leaves and leaves[0].device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused kernel for device {leaves[0].device}")
-    if kind not in _KIND_CODES:
-        raise ValueError(f"{kind.name} is not a fused comm phase")
-    if _KIND_CODES[kind] == 2:
-        _check_pow2(kind, p)
-    return _dispatch(
-        kind, op, tree,
-        lambda group: _launch(kind, p, op, group, inclusive, path),
-    )
+    with charged("k1", phase=kind.name, p=p,
+                 numel=sum(t.numel() for t in leaves),
+                 dtype=leaves[0].dtype if leaves else torch.float32):
+        if not leaves or leaves[0].device.type == "cpu":
+            return comm_phase_plain(kind, p, op, tree, inclusive=inclusive)
+        if kind not in _KIND_CODES:
+            raise ValueError(f"{kind.name} is not a fused comm phase")
+        if _KIND_CODES[kind] == 2:
+            _check_pow2(kind, p)
+        return _dispatch(
+            kind, op, tree,
+            lambda group: _launch(kind, p, op, group, inclusive, path),
+        )
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ of ``repro.kernels.prefix_scan``).
 
 The paper offloads the inter-node scan to the NIC; this is the intra-node
 half. :func:`scan_rows` is the wrapper: a CPU tensor takes the plain version
-(:func:`repro_torch.kernels.ref.ref_prefix_scan`), a CUDA tensor launches
+(:func:`repro_torch.kernels.ref.ref_prefix_scan`), as a ``meta`` one does
+(shapes alone, for a counted dry run), a CUDA tensor launches
 ``csrc/prefix_scan.cu`` (one block a row, the carry in a register across the
 row's column tiles, the exclusive shift done in the kernel) or raises.
 ``reverse=True`` scans each row back to front, for the add scan only (the
@@ -22,6 +23,11 @@ that requires grad: those have no backward here.
 :data:`launches` counts every kernel launch; :data:`reverse_launches` counts
 the back-to-front ones among them, which on the training path are the
 Function's backward.
+
+Under a :class:`~repro_torch.roofline.op_cost.CostMode` each call of
+:func:`scan_rows`, the one place K3 launches (forward, its recomputation
+and the Function's backward alike), counts as one K3 charge at K3's own
+cost, whichever implementation runs.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ref_prefix_scan, scan_identity
+from repro_torch.roofline.op_cost import charged
 
 #: kernel launches since import (the main path's proof that it ran K3)
 launches = 0
@@ -110,21 +117,24 @@ def scan_rows(
     reverse: bool = False,
 ) -> torch.Tensor:
     """Scan every row of a 2-D tensor, back to front with ``reverse`` (an
-    add scan only): the plain version for a CPU tensor, the CUDA kernel for a
-    CUDA tensor (no fallback between the two). The result carries no autograd
-    history; a gradient goes through :class:`PrefixScan`."""
+    add scan only): the plain version for a CPU (or ``meta``) tensor, the
+    CUDA kernel for a CUDA tensor (no fallback between the two). The result
+    carries no autograd history; a gradient goes through
+    :class:`PrefixScan`."""
     if x.ndim != 2:
         raise ValueError(f"expected 2D (rows, length), got {tuple(x.shape)}")
     if reverse and op != "add":
         raise ValueError(f"only the add scan runs back to front; got {op!r}")
-    if x.device.type == "cpu":
+    if x.device.type not in ("cpu", "meta", "cuda"):
+        raise ValueError(f"no scan kernel for device {x.device}")
+    with charged("k3", rows=x.shape[0], length=x.shape[1], dtype=x.dtype,
+                 reverse=reverse):
+        if x.device.type == "cuda":
+            return _launch(x, op, exclusive, reverse)
         if reverse:
             return ref_prefix_scan(x.flip(-1), op,
                                    exclusive=exclusive).flip(-1)
         return ref_prefix_scan(x, op, exclusive=exclusive)
-    if x.device.type != "cuda":
-        raise ValueError(f"no scan kernel for device {x.device}")
-    return _launch(x, op, exclusive, reverse)
 
 
 class PrefixScan(torch.autograd.Function):

@@ -64,6 +64,7 @@ from repro_torch.kernels.fused_collective import (
     aligned_rows,
 )
 from repro_torch.offload.planner import PhaseKind
+from repro_torch.roofline.op_cost import charged
 
 PyTree = Any
 
@@ -390,16 +391,25 @@ def comm_phase_spmd(
     """Run one comm phase per rank over ``axis_name``: the plain version for
     CPU tensors, one K2 launch (all co-resident ranks at once) on the path
     :func:`plan_launch` picks for CUDA tensors; no fallback between the two.
-    ``path`` names a path to take instead, for a comparison of the two."""
+    ``path`` names a path to take instead, for a comparison of the two.
+    Under a ``CostMode`` a call counts as one K2 charge at K2's own cost."""
+    leaves = tree_leaves(tree)
+    if leaves and leaves[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no spmd kernel for device {leaves[0].device}")
+    with charged("k2", phase=kind.name, p=p,
+                 numel=sum(t.numel() for t in leaves),
+                 dtype=leaves[0].dtype if leaves else torch.float32):
+        return _comm_phase_spmd(kind, p, axis_name, op, tree, leaves,
+                                inclusive, path)
+
+
+def _comm_phase_spmd(kind, p, axis_name, op, tree, leaves, inclusive, path):
     from repro_torch import compat
 
-    leaves = tree_leaves(tree)
     if not leaves or leaves[0].device.type == "cpu":
         return comm_phase_spmd_plain(
             kind, p, axis_name, op, tree, inclusive=inclusive
         )
-    if leaves[0].device.type != "cuda":
-        raise ValueError(f"no spmd kernel for device {leaves[0].device}")
     mesh = compat.mesh_of(axis_name)
     if not mesh.coresident:
         raise NotImplementedError(

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ref_ssd_scan
+from repro_torch.roofline.op_cost import charged
 
 #: kernel launches since import (the main path's proof that it ran K4)
 launches = 0
@@ -228,10 +229,11 @@ def ssd_rows(
     path: Optional[str] = None,
 ) -> torch.Tensor:
     """The state trajectory ``h`` of 3-D ``(N, T, D)`` operands, ``h0`` of
-    shape ``(N, D)`` or None: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors (no fallback between the two). ``path`` names
-    the CUDA kernel's path instead of :func:`plan_launch`, for a comparison
-    only."""
+    shape ``(N, D)`` or None: the plain version for CPU (or ``meta``)
+    tensors, the CUDA kernel for CUDA tensors (no fallback between the
+    two). ``path`` names the CUDA kernel's path instead of
+    :func:`plan_launch`, for a comparison only. Under a ``CostMode`` a
+    call counts as one K4 charge at K4's own cost."""
     if a.ndim != 3 or a.shape != b.shape:
         raise ValueError(
             f"expected matching 3D (N, T, D) shapes, got {tuple(a.shape)} "
@@ -242,10 +244,13 @@ def ssd_rows(
     tensors = [a, b] + ([] if h0 is None else [h0])
     if any(t.device != b.device for t in tensors):
         raise ValueError("a, b and h0 must share one device")
-    if b.device.type == "cpu":
-        return ref_ssd_scan(a, b, h0)[0]
-    if b.device.type != "cuda":
+    if b.device.type not in ("cpu", "meta", "cuda"):
         raise ValueError(f"no SSD kernel for device {b.device}")
-    if any(t.dtype != b.dtype for t in tensors):
-        raise ValueError("the SSD kernel needs a, b and h0 of one dtype")
-    return _launch(a, b, h0, path=path)
+    N, T, D = b.shape
+    with charged("k4", rows=N, time=T, width=D, dtype=b.dtype,
+                 h0=h0 is not None):
+        if b.device.type != "cuda":
+            return ref_ssd_scan(a, b, h0)[0]
+        if any(t.dtype != b.dtype for t in tensors):
+            raise ValueError("the SSD kernel needs a, b and h0 of one dtype")
+        return _launch(a, b, h0, path=path)

@@ -43,7 +43,10 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                 "repro_torch.service.registry",
                 "repro_torch.testing.chaos_check",
                 "repro_torch.testing.service_check",
-                "repro_torch.testing.health_check"):
+                "repro_torch.testing.health_check",
+                "repro_torch.roofline", "repro_torch.roofline.op_cost",
+                "repro_torch.roofline.analysis",
+                "repro_torch.launch.dryrun", "repro_torch.configs.paper8"):
         assert mod in mods
     code = (
         "import importlib, sys\n"

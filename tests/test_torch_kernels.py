@@ -137,8 +137,12 @@ def test_prefix_scan_integer_sums_wrap_in_their_type():
 def test_prefix_scan_rows_wrapper_checks_its_input():
     with pytest.raises(ValueError):
         K3.scan_rows(torch.zeros(2, 3, 4))
-    with pytest.raises(ValueError):
-        K3.scan_rows(torch.zeros(2, 3, device="meta"))
+    # a meta tensor takes the plain version (shapes alone, for a counted
+    # dry run): nothing launched
+    before = K3.launches
+    got = K3.scan_rows(torch.zeros(2, 3, device="meta"), reverse=True)
+    assert got.device.type == "meta" and got.shape == (2, 3)
+    assert K3.launches == before
     with pytest.raises(ValueError):
         t_scan(torch.zeros(()))
     assert [K3.block_threads(n) for n in (1, 128, 129, 1024, 10 ** 6)] == [
@@ -219,8 +223,11 @@ def test_ssd_rows_wrapper_checks_its_input():
         K4.ssd_rows(a, torch.ones(2, 3, 5))
     with pytest.raises(ValueError):
         K4.ssd_rows(a, a, torch.ones(2, 3))
-    with pytest.raises(ValueError):
-        K4.ssd_rows(a.to("meta"), a.to("meta"))
+    # a meta tensor takes the plain version: nothing launched
+    before = K4.launches
+    got = K4.ssd_rows(a.to("meta"), a.to("meta"))
+    assert got.device.type == "meta" and got.shape == a.shape
+    assert K4.launches == before
     with pytest.raises(ValueError):
         t_ssd(torch.ones(3), torch.ones(3))
 
@@ -289,8 +296,11 @@ def test_flash_attention_wrapper_checks_its_input():
         K5.attention(q, torch.ones(2, 4, 16), torch.ones(2, 4, 16))
     with pytest.raises(ValueError):
         K5.attention(q, torch.ones(2, 0, 32), torch.ones(2, 0, 32))
-    with pytest.raises(ValueError):
-        K5.attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    # a meta tensor takes the plain version: nothing launched
+    before = K5.launches
+    got = K5.attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    assert got.device.type == "meta" and got.shape == q.shape
+    assert K5.launches == before
     out = t_flash(q, q, q, block_q=16, block_kv=16)
     assert out.shape == q.shape and out.dtype == q.dtype
 
