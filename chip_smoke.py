@@ -9,8 +9,8 @@ non-zero without printing a result:
 1. device   — the card, its power limit, TF32 off, every kernel library
               built from ``src/repro_torch/kernels/csrc`` with nvcc (one nvcc
               per source, all started together), ptxas registers and spills
-              (of every K1, K2, K4 and K5 kernel; a spill in K1's register
-              path, K2's cluster path or K4's chunked path fails the run).
+              (of every K1-K5 kernel; a spill in K1's register path, K2's
+              cluster path or K4's chunked path fails the run).
 2. kernel   — K1 (the fused collective kernel) against its plain PyTorch
               version on the card, for every phase kind, operator and wire
               dtype, over rank counts of its register path (p <= 16) and
@@ -24,7 +24,12 @@ non-zero without printing a result:
               its decode, tensor-core and float32 paths in float32, bf16 and
               fp16, each output row also held to a limit relative to its
               norm, and the launches each call reports having made (counted
-              in C after each launch) held to ``plan_launch``'s; K4 on its
+              in C after each launch) held to ``plan_launch``'s; K3 on each
+              of its rows, tiles and lookback paths at both vector widths
+              (L = 1, 2, 3, a multiple of the vector +- 1, int8 at L = 17,
+              (4, 2^22)), inclusive, exclusive and back to front, one launch
+              a call, launches by path held to the plan, and normal draws
+              over 2^22 held to their float64 sums; K4 on its
               chunked and column paths over ragged T and D in every dtype,
               views off the vector alignment, broadcast h0, the exact
               a = b = 1 case at T = 4096 (bitwise), 20 back-to-back calls
@@ -143,13 +148,16 @@ non-zero without printing a result:
               recorder's dump); ``HealthMonitor.ingest`` of a broker's and
               its engine's telemetry and ``render_dashboard`` of both.
 11. entry    — the on-chip entry points at full width: Mamba2-130m's segment
-              scan, OLMoE's expert offsets, memory-bound (8192, 8192) scans,
+              scan (forward, and its training step's (768, 256) rows forward
+              and back to front through ``PrefixScan.backward``), OLMoE's
+              expert offsets, one (1, 2^26) row of I/O offsets (K3's
+              look-back), memory-bound (8192, 8192) scans,
               Mamba2-130m's SSD recurrence, SmolLM-360M and Gemma3-27B
               attention and a decode step. The launch counts of K3, K4 (also
               by path) and K5 are zeroed right before and read right after
               (one a call for K3 and K4; for K5 the launches its C entry
-              reports, held to ``plan_launch``'s count); each result is held
-              against its plain version.
+              reports, held to ``plan_launch``'s count; K3's and K4's also by
+              path); each result is held against its plain version.
 12. spmd     — the per-rank path: K2 (the per-rank collective kernel)
               through ``get_backend("pallas").lower(plan, op,
               axis_names=("i",))`` under the port's ``shard_map`` on
@@ -233,7 +241,11 @@ non-zero without printing a result:
               at the main and entry shapes: device time from
               ``torch.profiler`` and the per-call time with CUDA events
               (host overhead included), beside the least time the card's
-              memory bandwidth or peak rate allows; K1's register and K2's
+              memory bandwidth or peak rate allows (K3's device time counts
+              every activity of the call, the look-back's memset included,
+              and each K3 row under 64 MiB also has the time of a CUDA graph
+              of 100 captured calls, read by CUDA events: no host in it);
+              K1's register and K2's
               cluster path each beside the PR 13 path (named explicitly,
               timed in turns) at SCAN p = 8 and 16, 1 MiB per rank, and a
               25 MiB ALLREDUCE; the engine's driver-mode dispatch latency
@@ -268,7 +280,8 @@ PATH_KERNELS = {"register": "k1_register_kernel", "column": "k1_column_kernel",
 #: the kernel of each K4 path
 K4_KERNELS = {"chunked": "k4_chunked_kernel", "column": "k4_column_kernel"}
 #: (name in the kernels line, CUDA source, TPU kernel it replaces, the
-#: kernel's function name as the profiler lists it)
+#: kernel's function name as the profiler lists it; for K3 the prefix of its
+#: three paths' kernels, k3_scan_kernel_{rows,tiles,lookback})
 KERNELS = {
     "k1": ("k1_fused_comm", "fused_collective",
            "src/repro/kernels/pallas_collective.py:362", "k1_register_kernel"),
@@ -509,6 +522,7 @@ def phase_device(torch):
     k2_kernels = ptxas_paths(_build.build_log("spmd_collective"),
                              ("k2_cluster_kernel", "k2_flags_kernel"))
     k4_kernels = ptxas_paths(_build.build_log("ssd_scan"), tuple(K4_KERNELS.values()))
+    k3_kernels = ptxas_paths(_build.build_log("prefix_scan"), (KERNELS["k3"][3],))
     # the register and cluster kernels shrink VEC (or keep one row) so that
     # nothing spills, and K4's chunked kernel holds its steps in registers;
     # a build loaded from an earlier run has no log to read
@@ -529,12 +543,13 @@ def phase_device(torch):
         "libraries": [str(p.relative_to(REPO)) for p in paths.values()],
         "build_s": round(build_s, 3),
         "ptxas": ptxas,
-        # [registers, spill-store bytes] of every K1, K2, K4 and K5 kernel
+        # [registers, spill-store bytes] of every K1-K5 kernel
         "k5_kernels": ptxas_paths(_build.build_log("flash_attention"),
                                   ("k5_flash_kernel",)),
         "k1_kernels": k1_kernels,
         "k2_kernels": k2_kernels,
         "k4_kernels": k4_kernels,
+        "k3_kernels": k3_kernels,
     })
     return name, smi
 
@@ -1370,6 +1385,110 @@ def onchip_k4(torch, device, check):
     return cases, paths
 
 
+#: K3's onchip shapes: ragged, N-d and long rows on every path (rows: a
+#: short row a warp; tiles: 300 rows of 4096 and 4097; lookback: one and
+#: three rows of 70000 and 70001), L = 1, 2, 3 and a multiple of the vector
+#: +- 1 (255, 256, 257)
+K3_SHAPES = ((1, 1), (5, 1), (5, 2), (5, 3), (3, 257), (7, 255), (7, 256),
+             (2, 1000), (2, 3, 64), (2, 3, 5, 700), (300, 4096), (300, 4097),
+             (1, 70000), (3, 70001))
+#: fp16 and int8 on these (int8 at L = 17, and at 32: one 16-byte vector)
+K3_HALF_SHAPES = ((3, 257), (9, 17), (9, 32), (1, 70000))
+#: the look-back over four rows of 2^22, nonnegative (I/O offsets), and the
+#: same rows of normal draws held to their float64 sums
+K3_LONG = (4, 1 << 22)
+
+
+def onchip_k3(torch, device, check):
+    """K3 through ``ops.prefix_scan`` (and ``scan_rows(reverse=True)``) on
+    every path and vector width, one launch a call; returns the cases, the
+    launches by path (held to the plan's), the (path, width) pairs reached
+    (each path at both widths) and the long row's distances to its float64
+    sums."""
+    from repro_torch.kernels import ops, ref
+
+    k3 = kernel_modules()["k3"]
+    for path in k3.path_launches:
+        k3.path_launches[path] = 0
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    planned = dict.fromkeys(k3.path_launches, 0)
+    variants = set()
+    cases = 0
+
+    def run(x, op, exclusive, reverse, want, key):
+        nonlocal cases
+        flat = x.reshape(-1, x.shape[-1])
+        plan = k3.plan_launch(*flat.shape, x.dtype, op, exclusive, reverse,
+                              (flat.data_ptr(),))
+        before = k3.launches
+        if reverse:
+            got = k3.scan_rows(flat, op=op, exclusive=exclusive,
+                               reverse=True).reshape(x.shape)
+        else:
+            got = ops.prefix_scan(x, op=op, exclusive=exclusive)
+        rtol, atol = scan_tolerance(torch, op, x.dtype)
+        check(key, got, want, rtol, atol,
+              f"K3 {plan.path} vec={plan.vec} {op} {x.dtype} "
+              f"{tuple(x.shape)} exclusive={exclusive} reverse={reverse}",
+              k3.launches - before)
+        planned[plan.path] += 1
+        variants.add((plan.path, plan.vec))
+        cases += 1
+        return got
+
+    combos = [(op, dt, shp) for shp in K3_SHAPES for op in ("add", "max", "mul")
+              for dt in (torch.float32, torch.bfloat16, torch.int32)]
+    combos += [(op, dt, shp) for shp in K3_HALF_SHAPES
+               for op in ("add", "max", "mul")
+               for dt in (torch.float16, torch.int8)]
+    for op, dtype, shape in combos:
+        x = scan_input(torch, gen, op, dtype, shape, device,
+                       nan=op == "max" and dtype.is_floating_point)
+        for exclusive in (False, True):
+            run(x, op, exclusive, False,
+                ref.ref_prefix_scan(x, op, exclusive=exclusive),
+                f"k3:{op}:{dtype_name(dtype)}")
+            if op == "add":
+                want = ref.ref_prefix_scan(x.flip(-1), op,
+                                           exclusive=exclusive).flip(-1)
+                run(x, op, exclusive, True, want,
+                    f"k3:add_reverse:{dtype_name(dtype)}")
+    x = torch.rand(K3_LONG, generator=gen, device=device)
+    for exclusive, reverse in ((False, False), (True, False), (False, True),
+                               (True, True)):
+        xs = x.flip(-1) if reverse else x
+        want = ref.ref_prefix_scan(xs, "add", exclusive=exclusive)
+        run(x, "add", exclusive, reverse, want.flip(-1) if reverse else want,
+            "k3:add_long")
+    # normal draws over 2^22: the float32 plain version itself drifts from
+    # the float64 sum by more than the scan tolerance, so K3 is held to the
+    # float64 sum, at most twice as far from it as the plain version
+    x = torch.randn(K3_LONG, generator=gen, device=device)
+    exact = torch.cumsum(x.double(), -1)
+    before = k3.launches
+    got = ops.prefix_scan(x)
+    torch.cuda.synchronize()
+    if k3.launches - before != 1:
+        raise AssertionError("K3 long row: not one launch")
+    planned[k3.plan_launch(*K3_LONG, x.dtype).path] += 1
+    long_row = {"k3_vs_f64": float((got.double() - exact).abs().max()),
+                "plain_vs_f64": float((ref.ref_prefix_scan(x, "add").double()
+                                       - exact).abs().max())}
+    if not long_row["k3_vs_f64"] <= 2 * long_row["plain_vs_f64"]:
+        raise AssertionError(f"K3 long row: {long_row}")
+    del x, exact, got
+    cases += 1
+    paths = dict(k3.path_launches)
+    if paths != planned:
+        raise AssertionError(f"k3: launched {paths} by path, planned {planned}")
+    for path in paths:
+        widths = {vec for p, vec in variants if p == path}
+        if len(widths) < 2:
+            raise AssertionError(f"k3 {path}: widths {widths} reached, not both")
+    return cases, paths, sorted(map(list, variants)), long_row
+
+
 def phase_onchip(torch, device):
     from repro_torch.kernels import ops, ref
 
@@ -1389,24 +1508,12 @@ def phase_onchip(torch, device):
     cases = 0
     worst_row = {}
     # K3: every op over float32 / bf16 / int32 on ragged, N-d and long rows
-    # (with a NaN for max), and fp16 / int8 on two shapes
-    shapes = [(1, 1), (3, 257), (2, 1000), (2, 3, 64), (2, 3, 5, 700), (1, 70000)]
-    combos = [(op, dt, shp) for shp in shapes for op in ("add", "max", "mul")
-              for dt in (torch.float32, torch.bfloat16, torch.int32)]
-    combos += [(op, dt, shp) for shp in ((3, 257), (1, 70000))
-               for op in ("add", "max", "mul") for dt in (torch.float16, torch.int8)]
-    for op, dtype, shape in combos:
-        x = scan_input(torch, gen, op, dtype, shape, device,
-                       nan=op == "max" and dtype.is_floating_point)
-        for exclusive in (False, True):
-            before = mods["k3"].launches
-            got = ops.prefix_scan(x, op=op, exclusive=exclusive)
-            launched = mods["k3"].launches - before
-            want = ref.ref_prefix_scan(x, op, exclusive=exclusive)
-            rtol, atol = scan_tolerance(torch, op, dtype)
-            check(f"k3:{op}:{dtype_name(dtype)}", got, want, rtol, atol,
-                  f"K3 {op} {dtype} {shape} exclusive={exclusive}", launched)
-            cases += 1
+    # (with a NaN for max), and fp16 / int8 on four shapes: each path (rows,
+    # tiles, lookback) at both widths (16-byte vectors, one element a lane:
+    # L = 1, 2, 3, a multiple of the vector +- 1, int8 at L = 17), each
+    # exclusive and back to front
+    k3_cases, k3_paths, k3_variants, k3_long = onchip_k3(torch, device, check)
+    cases += k3_cases
     # K4: ragged T, T = 1, N-d, Mamba width, with and without h0
     for shape in ((2, 300, 64), (3, 1, 40), (2, 2, 37, 48), (1, 1000, 1536)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1474,6 +1581,8 @@ def phase_onchip(torch, device):
     emit({
         "phase": "onchip", "cases": cases, "max_abs_err": worst,
         "k5_row_rel_err": worst_row, "k4_path_launches": k4_paths,
+        "k3_path_launches": k3_paths, "k3_variants": k3_variants,
+        "k3_long_row": k3_long,
         "tolerances": {
             "k3": "bitwise for max and integers; float32 rtol 1e-4 (add atol "
                   "1e-3); bf16 rtol 1e-2, fp16 rtol 2e-3 (add atol = rtol)",
@@ -1512,6 +1621,8 @@ def entry_cases(torch, device):
     gen.manual_seed(4)
     cases = []
 
+    k3 = kernel_modules()["k3"]
+
     def scan_case(label, x, op, exclusive=False, head=False):
         library = None
         if not exclusive:
@@ -1520,12 +1631,15 @@ def entry_cases(torch, device):
             else:
                 fn = torch.cumsum if op == "add" else torch.cumprod
                 library = lambda: fn(x, -1, dtype=x.dtype)  # noqa: E731
+        flat = x.reshape(-1, x.shape[-1])
         cases.append(EntryCase(
             "k3", label,
             lambda: ops.prefix_scan(x, op=op, exclusive=exclusive),
             lambda: ref.ref_prefix_scan(x, op, exclusive=exclusive),
             library, scan_tolerance(torch, op, x.dtype),
             scan_bytes(x), head=head,
+            path=k3.plan_launch(*flat.shape, x.dtype, op, exclusive,
+                                ptrs=(flat.data_ptr(),)).path,
         ))
 
     # Mamba2-130m prefill: within-chunk log-decay scan (B, nc, H, Q) =
@@ -1543,6 +1657,25 @@ def entry_cases(torch, device):
                            dtype=torch.int32)
     scan_case("olmoe_1b_7b EP expert offsets (8,64) int32 add exclusive",
               counts, "add", exclusive=True)
+    # Mamba2-130m's training step at (8, 1024): its segment-scan rows, and
+    # their gradient, K3 back to front through PrefixScan.backward
+    rows = torch.randn((768, 256), generator=gen, device=device)
+    scan_case("mamba2_130m train segment scan (768,256) f32 add", rows, "add")
+    grad = torch.randn((768, 256), generator=gen, device=device)
+    ctx = type("Ctx", (), {"exclusive": False})()
+    cases.append(EntryCase(
+        "k3", "mamba2_130m train segment scan backward (768,256) f32 "
+              "reverse add",
+        lambda: k3.PrefixScan.backward(ctx, grad)[0],
+        lambda: ref.ref_prefix_scan(grad.flip(-1), "add").flip(-1),
+        None, scan_tolerance(torch, "add", grad.dtype), scan_bytes(grad),
+        path=k3.plan_launch(768, 256, grad.dtype, reverse=True,
+                            ptrs=(grad.data_ptr(),)).path,
+    ))
+    # one long row: the I/O offsets of 2^26 nonnegative sizes (256 MiB),
+    # the look-back across blocks
+    sizes = torch.rand((1, 1 << 26), generator=gen, device=device)
+    scan_case("(1,67108864) f32 add (I/O offsets)", sizes, "add")
     # memory-bound: I/O offsets / radix bucket bases over 256 MiB
     big = (8192, 8192)
     for op, dtype in (("add", torch.float32), ("max", torch.float32),
@@ -1625,15 +1758,19 @@ def phase_entry(torch, device):
         mods[key].launches = 0
     for path in mods["k4"].path_launches:
         mods["k4"].path_launches[path] = 0
+    for path in mods["k3"].path_launches:
+        mods["k3"].path_launches[path] = 0
     outs = [c.call() for c in cases]
     torch.cuda.synchronize()
     launches = {key: mods[key].launches for key in ("k3", "k4", "k5")}
-    k4_paths = dict(mods["k4"].path_launches)
-    planned = {path: sum(c.launches for c in cases
-                         if c.key == "k4" and c.path == path)
-               for path in k4_paths}
-    if k4_paths != planned:
-        raise AssertionError(f"k4: launched {k4_paths} by path, planned {planned}")
+    by_path = {key: dict(mods[key].path_launches) for key in ("k3", "k4")}
+    for key, made in by_path.items():
+        planned = {path: sum(c.launches for c in cases
+                             if c.key == key and c.path == path)
+                   for path in made}
+        if made != planned:
+            raise AssertionError(f"{key}: launched {made} by path, planned {planned}")
+    k4_paths = by_path["k4"]
     for key, n in launches.items():
         # K3 and K4 launch once a call; K5 counts what its C entry
         # launched, held to what plan_launch planned
@@ -1661,7 +1798,7 @@ def phase_entry(torch, device):
     del outs
     torch.cuda.empty_cache()
     emit({"phase": "entry", "launches": launches, "k4_path_launches": k4_paths,
-          "calls": rows, "ok": True})
+          "k3_path_launches": by_path["k3"], "calls": rows, "ok": True})
     return launches, cases
 
 
@@ -2862,11 +2999,15 @@ def phase_times(torch, device, card, launches):
 def phase_times_onchip(torch, card, launches, cases):
     """K3-K5 rows at the entry shapes; returns their kernels-line entries,
     each from its kernel's headline row."""
+    from repro_torch.testing.k3_ablation import graph_us
+
     rows = []
     for case in cases:
         big = case.nbytes >= (64 << 20) or case.flops >= 1e10
         iters = 10 if big else 100
-        name = KERNELS[case.key][3]
+        # K3's call: every device activity (the look-back path's memset of
+        # its status words included)
+        name = None if case.key == "k3" else KERNELS[case.key][3]
         bound_ms, bound_by = case.bound(card)
         dev = {
             "ms": device_ms(torch, case.call, iters, name=name),
@@ -2897,6 +3038,12 @@ def phase_times_onchip(torch, card, launches, cases):
                "launches_per_call": case.launches}
         if case.path is not None:
             row["path"] = case.path
+        if case.key == "k3" and case.nbytes < (64 << 20):
+            # the device's time with no host in it: CUDA events around a
+            # CUDA graph of 100 captured calls
+            row["graph_ms"] = graph_us(case.call) / 1e3
+            if case.library is not None:
+                row["library_graph_ms"] = graph_us(case.library) / 1e3
         if case.flops:
             row["tflops"] = case.flops / dev["ms"] / 1e9
         rows.append(row)
@@ -3444,6 +3591,8 @@ def times_serve_forward(torch, device, smi, mods):
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
 
+    mamba = importlib.import_module("repro_torch.models.mamba")
+
     cfg = get_config("mamba2-130m")
     api = build_model(cfg)
     model = api.init(torch.Generator().manual_seed(23), device=device)
@@ -3455,7 +3604,20 @@ def times_serve_forward(torch, device, smi, mods):
         with torch.inference_mode():
             return api.forward(model, {"tokens": tokens})[0]
 
-    logits = forward()                       # warm-up, and the output check
+    # the warm-up also keeps one layer's (B, nc, Q, H) log-decay increments,
+    # whose moved axes ops.prefix_scan copies into K3's (B*nc*H, Q) rows
+    segment_scan, seen = mamba._segment_scan, []
+
+    def keep(dAc):
+        if not seen:
+            seen.append(dAc.detach().clone())
+        return segment_scan(dAc)
+
+    mamba._segment_scan = keep
+    try:
+        logits = forward()                   # warm-up, and the output check
+    finally:
+        mamba._segment_scan = segment_scan
     torch.cuda.synchronize()
     if logits.shape != (B, S, cfg.padded_vocab) or not bool(
             torch.isfinite(logits).all()):
@@ -3482,6 +3644,20 @@ def times_serve_forward(torch, device, smi, mods):
     _, alone_dev, alone_counts = profiled(torch, scans, ("k3_scan_kernel",))
     alone = (None if alone_dev is None or not alone_counts["k3_scan_kernel"]
              else alone_dev["k3_scan_kernel"] / alone_counts["k3_scan_kernel"])
+    # the copy that movedim + reshape make of every layer's increments
+    # before K3 (the strided form that would take the view is still open)
+    dAc = seen[0]
+
+    def copy():
+        x = torch.movedim(dAc, 2, 3).float()
+        return x.reshape(-1, x.shape[-1])
+
+    from repro_torch.testing.k3_ablation import graph_us
+
+    copy_ms = device_ms(torch, copy, 20)
+    # the profiler drops this short kernel's records now and then: also a
+    # CUDA graph of 100 copies, read by events (no host in it)
+    copy_graph_ms = graph_us(copy) / 1e3
     line = {
         "phase": "times_serve_forward", "arch": cfg.name, "dtype": cfg.dtype,
         "shape": [B, S], "wall_ms": wall_ms,
@@ -3491,6 +3667,10 @@ def times_serve_forward(torch, device, smi, mods):
         "k3_ms_per_launch_in_model": (None if dev is None
                                       else dev["k3_scan_kernel"] / cfg.num_layers),
         "k3_ms_alone": alone, "k3_shape": [8, 16, 24, 256],
+        # the movedim-and-reshape copy before each launch, alone
+        "segment_copy": {"input": [list(dAc.shape), dtype_name(dAc.dtype)],
+                         "ms": copy_ms, "graph_ms": copy_graph_ms,
+                         "graph_ms_per_forward": copy_graph_ms * cfg.num_layers},
         # read once, written once, at the card's memory rate
         "k3_bound_ms": scan_bytes(seg)
         / mem_bandwidth(torch.cuda.get_device_name(0)) * 1e3,

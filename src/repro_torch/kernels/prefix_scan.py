@@ -6,11 +6,24 @@ The paper offloads the inter-node scan to the NIC; this is the intra-node
 half. :func:`scan_rows` is the wrapper: a CPU tensor takes the plain version
 (:func:`repro_torch.kernels.ref.ref_prefix_scan`), as a ``meta`` one does
 (shapes alone, for a counted dry run), a CUDA tensor launches
-``csrc/prefix_scan.cu`` (one block a row, the carry in a register across the
-row's column tiles, the exclusive shift done in the kernel) or raises.
-``reverse=True`` scans each row back to front, for the add scan only (the
-kernel's instantiation for it mirrors its loads and stores; the plain version
-flips).
+``csrc/prefix_scan.cu`` on the path that :func:`plan_launch` picks, or
+raises:
+
+* ``rows`` (a row of at most :data:`ROWS_MAX_BYTES`): one warp a row, several
+  rows a block, the row's 16-byte vectors all loaded before any combine, the
+  lane totals scanned with shuffles; no shared memory, no barrier.
+* ``tiles`` (longer rows, at least :data:`TILES_MIN_ROWS` of them): one block
+  a row walking tiles, the next tile's loads in flight while the current one
+  is scanned, one barrier a tile.
+* ``lookback`` (few long rows): each row cut into chunks, one block a chunk,
+  joined by a decoupled look-back over one 64-bit status word a chunk. The
+  status words are scratch of each call, zeroed by one memset in the C entry
+  (no kernel launch).
+
+The exclusive shift happens in the kernel on every path. ``reverse=True``
+scans each row back to front, for the add scan only (the kernel's
+instantiation for it reads its vectors from the row's end and reverses them
+in registers; the plain version flips).
 
 :class:`PrefixScan` is the scan as a ``torch.autograd.Function``: the
 gradient of an add scan is the add scan of the incoming gradient run back to
@@ -20,9 +33,10 @@ backward on the card (the plain version both ways on the CPU).
 raises ``NotImplementedError`` for a ``max`` or ``mul`` scan of a tensor
 that requires grad: those have no backward here.
 
-:data:`launches` counts every kernel launch; :data:`reverse_launches` counts
-the back-to-front ones among them, which on the training path are the
-Function's backward.
+:data:`launches` counts every kernel launch (one a call);
+:data:`reverse_launches` counts the back-to-front ones among them, which on
+the training path are the Function's backward; :data:`path_launches` counts
+them by path.
 
 Under a :class:`~repro_torch.roofline.op_cost.CostMode` each call of
 :func:`scan_rows`, the one place K3 launches (forward, its recomputation
@@ -33,17 +47,22 @@ cost, whichever implementation runs.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ref_prefix_scan, scan_identity
+from repro_torch.kernels.ref import ref_prefix_scan
 from repro_torch.roofline.op_cost import charged
 
 #: kernel launches since import (the main path's proof that it ran K3)
 launches = 0
 #: the back-to-front launches among :data:`launches` (K3's backward)
 reverse_launches = 0
+#: :data:`launches` by path
+path_launches = {"rows": 0, "tiles": 0, "lookback": 0}
 
 _OP_CODES = {"add": 0, "max": 1, "mul": 2}
 _DTYPE_CODES = {
@@ -53,38 +72,198 @@ _DTYPE_CODES = {
     torch.float16: 3,
     torch.int8: 4,
 }
-#: elements a thread scans per tile (``ITEMS`` in the source)
-_ITEMS = 4
-_MAX_THREADS = 256
+_PATH_CODES = {"rows": 0, "tiles": 1, "lookback": 2}
+#: the longest row, in bytes, that the rows path takes (eight of its
+#: 1 KiB batches): at 2048 float32 rows on an H100 the rows path beat the
+#: tiles path at 4 and 8 KiB a row and lost at 12 and 16 KiB
+#: (``testing/k3_ablation.py``'s threshold readings)
+ROWS_MAX_BYTES = 8192
+#: the fewest rows that the tiles path takes: two per SM of an H100 (132);
+#: fewer long rows leave SMs idle and take the look-back instead
+TILES_MIN_ROWS = 264
+#: 64-bit scratch words before the look-back's status words (the ticket, the
+#: timeout: a look-back wait past 2 s traps, so the next synchronisation
+#: raises instead of hanging)
+HEAD_WORDS = 2
 
 
-def block_threads(length: int) -> int:
-    """Threads a block: enough for one tile to cover a short row, a power of
-    two in [32, 256]."""
-    need = -(-length // _ITEMS)
-    threads = 32
-    while threads < need and threads < _MAX_THREADS:
-        threads *= 2
-    return threads
+@dataclass(frozen=True)
+class Build:
+    """The compile-time design of a build of ``csrc/prefix_scan.cu`` (its
+    ``K3_*`` macros, which ``k3_scan_build`` reports)."""
+
+    vec_bytes: int = 16      # bytes a lane loads at once (K3_VEC_BYTES)
+    row_lanes: int = 32      # lanes a row on the rows path (K3_ROW_LANES)
+    row_warps: int = 8       # warps a rows block (K3_ROW_WARPS)
+    row_segs: int = 2        # segments a row group loads at once (K3_ROW_SEGS)
+    tile_threads: int = 256  # threads a tiles block (K3_TILE_THREADS)
+    tile_vecs: int = 2       # vectors a thread a tile (K3_TILE_VECS)
+    prefetch: int = 1        # next batch's or tile's loads in flight (K3_PREFETCH)
+    chunk_threads: int = 128  # threads a look-back block (K3_CHUNK_THREADS)
+    chunk_vecs: int = 8      # vectors a thread a look-back chunk (K3_CHUNK_VECS)
+
+    def vec(self, itemsize: int) -> int:
+        """Elements a lane loads at once on the vector variant."""
+        return max(1, self.vec_bytes // itemsize)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("prefix_scan")
-    fn = lib.k3_prefix_scan
-    fn.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_double, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return lib
+#: the design the shipped source compiles to
+SHIPPED = Build()
 
 
-def _launch(x: torch.Tensor, op: str, exclusive: bool,
-            reverse: bool) -> torch.Tensor:
-    global launches, reverse_launches
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one call (one kernel launch) runs: its path, vector width,
+    block, chunks and grid, and the look-back's scratch."""
+
+    path: str            # "rows", "tiles" or "lookback"
+    vec: int             # elements a lane loads at once (1: one-element variant)
+    threads: int         # threads a block
+    rows_per_block: int  # rows a block scans
+    chunk: int           # elements of a row one block scans (L off the look-back)
+    chunks: int          # chunks a row (1 off the look-back)
+    blocks: int          # the grid
+    status_words: int    # 64-bit scratch words, zeroed a call (0 off the look-back)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(R: int, L: int, dtype: torch.dtype, op: str, reverse: bool,
+          aligned: bool, build: Build, path: Optional[str],
+          vec: Optional[int]) -> LaunchPlan:
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"the scan kernel takes {sorted(map(str, _DTYPE_CODES))}; got {dtype}"
+        )
     if op not in _OP_CODES:
         raise ValueError(f"unknown op {op!r}")
+    if reverse and op != "add":
+        raise ValueError(f"only the add scan runs back to front; got {op!r}")
+    if path is None:
+        if L * dtype.itemsize <= ROWS_MAX_BYTES:
+            path = "rows"
+        else:
+            path = "tiles" if R >= TILES_MIN_ROWS else "lookback"
+    elif path not in _PATH_CODES:
+        raise ValueError(f"no K3 path {path!r}; paths: {sorted(_PATH_CODES)}")
+    wide = build.vec(dtype.itemsize)
+    if vec is None:
+        vec = wide if aligned and L % wide == 0 else 1
+    elif vec not in (1, wide):
+        raise ValueError(f"K3 loads 1 or {wide} elements of {dtype}; got {vec}")
+    elif L % vec:
+        raise ValueError(f"a vector of {vec} does not divide L = {L}")
+    if path == "rows":
+        threads = 32 * build.row_warps
+        per_block = threads // build.row_lanes
+        return LaunchPlan("rows", vec, threads, per_block, L, 1,
+                          _cdiv(R, per_block), 0)
+    if path == "tiles":
+        return LaunchPlan("tiles", vec, build.tile_threads, 1, L, 1, R, 0)
+    chunk = build.chunk_threads * vec * build.chunk_vecs
+    chunks = _cdiv(L, chunk)
+    return LaunchPlan("lookback", vec, build.chunk_threads, 1, chunk, chunks,
+                      R * chunks, HEAD_WORDS + R * chunks)
+
+
+def plan_launch(
+    R: int, L: int, dtype: torch.dtype, op: str = "add",
+    exclusive: bool = False, reverse: bool = False, ptrs: Sequence[int] = (),
+    *, build: Build = SHIPPED, path: Optional[str] = None,
+    vec: Optional[int] = None,
+) -> LaunchPlan:
+    """The path, vector width, block, grid and scratch of one call on a
+    contiguous ``(R, L)`` tensor whose input and output start at ``ptrs``;
+    :func:`_launch` follows it. The vector variant loads ``build.vec_bytes``
+    at once where ``L`` is a multiple of that many elements and every
+    pointer is aligned to that many bytes, else one element. ``exclusive``
+    changes nothing: the shift is in registers. ``path`` and ``vec`` name a
+    path or width instead, for a comparison only."""
+    del exclusive
+    aligned = not any(p % build.vec_bytes for p in ptrs)
+    return _plan(R, L, dtype, op, reverse, aligned, build, path, vec)
+
+
+@dataclass(frozen=True)
+class Entry:
+    """A loaded build's C entry point, the design it was compiled to, and
+    the calls planned for it so far (see :func:`_call`)."""
+
+    fn: object
+    build: Build
+    calls: dict = field(default_factory=dict, compare=False, repr=False)
+
+
+def bind(lib: ctypes.CDLL) -> Entry:
+    """The entry point ``k3_prefix_scan`` of a loaded library, its argument
+    types set, with the build's design read from ``k3_scan_build``."""
+    design = (ctypes.c_int * 9)()
+    lib.k3_scan_build.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.k3_scan_build.restype = None
+    lib.k3_scan_build(design)
+    fn = lib.k3_prefix_scan
+    # (code, x, y, R, L, ws, stream): every argument declared a pointer,
+    # which ctypes converts from an int fastest; the integers (long long in
+    # C) pass in the same 64-bit registers on an LP64 host
+    fn.argtypes = [ctypes.c_void_p] * 7
+    fn.restype = ctypes.c_int
+    return Entry(fn, Build(*design))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry() -> Entry:
+    """The entry point of the library built from ``csrc``, whose design must
+    be the one :data:`SHIPPED` plans for."""
+    entry = bind(_build.load_library("prefix_scan"))
+    if entry.build != SHIPPED:
+        raise RuntimeError(
+            f"prefix_scan.cu compiles to {entry.build}, the wrapper plans for "
+            f"{SHIPPED}"
+        )
+    return entry
+
+
+def _call(entry: Entry, R: int, L: int, dtype: torch.dtype, op: str,
+          exclusive: bool, reverse: bool, aligned: bool,
+          path: Optional[str], vec: Optional[int]):
+    """The plan of a call and the call packed into the C entry's one word
+    (``csrc/prefix_scan.cu``: path, op, dtype, vector width, exclusive,
+    reverse, grid), kept on ``entry`` for the calls to come."""
+    key = (R, L, dtype, op, exclusive, reverse, aligned, path, vec)
+    hit = entry.calls.get(key)
+    if hit is None:
+        plan = _plan(R, L, dtype, op, reverse, aligned, entry.build, path, vec)
+        code = (_PATH_CODES[plan.path] | _OP_CODES[op] << 2
+                | _DTYPE_CODES[dtype] << 4 | plan.vec << 7
+                | int(exclusive) << 12 | int(reverse) << 13
+                | plan.blocks << 16)
+        hit = entry.calls[key] = (plan, code)
+    return hit
+
+
+def _stream_of(device_index: int) -> int:
+    """The current CUDA stream of a device, as a raw pointer."""
+    return torch.cuda.current_stream(device_index).cuda_stream
+
+
+# PyTorch's own accessors where the build has them (a CUDA build does): the
+# raw stream and the current device without building Python objects
+_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _stream_of)
+_current_device = getattr(torch._C, "_cuda_getDevice",
+                          torch.cuda.current_device)
+
+
+def _launch(
+    x: torch.Tensor, op: str, exclusive: bool, reverse: bool, *,
+    path: Optional[str] = None, vec: Optional[int] = None,
+    entry: Optional[Entry] = None,
+) -> torch.Tensor:
+    """Run the planned kernel through ``entry`` (default: the library built
+    from ``csrc``; another build's :func:`bind` for a comparison)."""
+    global launches, reverse_launches
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(
             f"the scan kernel takes {sorted(map(str, _DTYPE_CODES))}; got {x.dtype}"
@@ -94,21 +273,29 @@ def _launch(x: torch.Tensor, op: str, exclusive: bool,
     y = torch.empty_like(x)
     if R == 0 or L == 0:
         return y
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.k3_prefix_scan(
-            _OP_CODES[op], _DTYPE_CODES[x.dtype], x.data_ptr(), y.data_ptr(),
-            R, L, int(exclusive), int(reverse),
-            float(scan_identity(op, x.dtype)), block_threads(L), stream,
+    device = x.get_device()
+    if device != _current_device():
+        raise ValueError(
+            f"the scan's input lies on cuda:{device}, the current device is "
+            f"cuda:{torch.cuda.current_device()}"
         )
+    entry = entry or _entry()
+    xp, yp = x.data_ptr(), y.data_ptr()
+    plan, code = _call(entry, R, L, x.dtype, op, exclusive, reverse,
+                       not (xp | yp) % entry.build.vec_bytes, path, vec)
+    ws = None
+    if plan.status_words:
+        ws = torch.empty(plan.status_words, dtype=torch.int64, device=x.device)
+    rc = entry.fn(code, xp, yp, R, L, None if ws is None else ws.data_ptr(),
+                  _stream(device))
     if rc != 0:
         raise RuntimeError(
-            f"prefix scan kernel launch failed (code {rc}) for op={op} "
-            f"dtype={x.dtype} shape={(R, L)} reverse={reverse}"
+            f"prefix scan kernel launch failed (code {rc}) on the {plan.path} "
+            f"path for op={op} dtype={x.dtype} shape={(R, L)} reverse={reverse}"
         )
     launches += 1
     reverse_launches += int(reverse)
+    path_launches[plan.path] += 1
     return y
 
 
@@ -125,11 +312,12 @@ def scan_rows(
         raise ValueError(f"expected 2D (rows, length), got {tuple(x.shape)}")
     if reverse and op != "add":
         raise ValueError(f"only the add scan runs back to front; got {op!r}")
-    if x.device.type not in ("cpu", "meta", "cuda"):
+    on_card = x.is_cuda
+    if not on_card and x.device.type not in ("cpu", "meta"):
         raise ValueError(f"no scan kernel for device {x.device}")
     with charged("k3", rows=x.shape[0], length=x.shape[1], dtype=x.dtype,
                  reverse=reverse):
-        if x.device.type == "cuda":
+        if on_card:
             return _launch(x, op, exclusive, reverse)
         if reverse:
             return ref_prefix_scan(x.flip(-1), op,

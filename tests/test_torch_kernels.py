@@ -145,8 +145,11 @@ def test_prefix_scan_rows_wrapper_checks_its_input():
     assert K3.launches == before
     with pytest.raises(ValueError):
         t_scan(torch.zeros(()))
-    assert [K3.block_threads(n) for n in (1, 128, 129, 1024, 10 ** 6)] == [
-        32, 32, 64, 256, 256]
+    # the CUDA path's plan: a short row takes a warp, a long one a block or,
+    # with few rows, the look-back's chunks
+    assert [K3.plan_launch(r, n, torch.float32).path
+            for r, n in ((1, 1), (8, 256), (8192, 8192), (1, 10 ** 6))] == [
+        "rows", "rows", "tiles", "lookback"]
 
 
 def test_prefix_scan_ignores_block_hints():
