@@ -254,6 +254,25 @@ non-zero without printing a result:
               SSD shape in float32 and bf16, with the same-bytes time of
               ``torch.add(a, b, out=h)``.
 
+19. procs    — last: K2's peers path, one rank per process
+              (``repro_torch.testing.procs_check``): 2, 4 and 8 processes
+              sharing the card in one gloo group (a ``file://`` store), the
+              kernels built once by this process first. Every rank runs the
+              engine's spmd mode with ``backend="pallas"`` over a planned
+              (1, p) request: SCAN and EXSCAN (sum), ALLREDUCE (sum, max and
+              min) on int32 and float32 and sum on bf16, BARRIER, and the
+              fused scan+total plan through the per-rank lowering, at 4 B,
+              1 KiB, 64 KiB and 1 MiB a rank; a subset in driver mode; 200
+              back-to-back SCANs at p = 4 (1 KiB and 1 MiB); then the same
+              descriptors on the default backend (the spmd rounds over
+              gloo). Every rank's result is held bitwise (SHA-256 of its
+              bytes) to the co-resident K2 and the plain version on the same
+              seeded stacked input; each process's peers launches to its
+              comm phases. Times both ways (host clock and CUDA events, per
+              rank, K2 and the rounds in turns) are those of time-sliced
+              contexts on one card. Fails on a card in Exclusive_Process
+              mode.
+
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is the result object.
 """
@@ -276,7 +295,8 @@ SRC = REPO / "src"
 CSRC = "src/repro_torch/kernels/csrc"
 #: the kernel of each K1 / K2 path, as the profiler and ptxas name it
 PATH_KERNELS = {"register": "k1_register_kernel", "column": "k1_column_kernel",
-                "cluster": "k2_cluster_kernel", "flags": "k2_flags_kernel"}
+                "cluster": "k2_cluster_kernel", "flags": "k2_flags_kernel",
+                "peers": "k2_peers_kernel"}
 #: the kernel of each K4 path
 K4_KERNELS = {"chunked": "k4_chunked_kernel", "column": "k4_column_kernel"}
 #: (name in the kernels line, CUDA source, TPU kernel it replaces, the
@@ -287,6 +307,10 @@ KERNELS = {
            "src/repro/kernels/pallas_collective.py:362", "k1_register_kernel"),
     "k2": ("k2_spmd_comm", "spmd_collective",
            "src/repro/kernels/pallas_collective.py:180", "k2_cluster_kernel"),
+    # K2's peers path: one rank per process, its own C entry
+    "k2_peers": ("k2_spmd_peers", "spmd_collective",
+                 "src/repro/kernels/pallas_collective.py:180",
+                 "k2_peers_kernel"),
     "k3": ("k3_prefix_scan", "prefix_scan",
            "src/repro/kernels/prefix_scan.py:45", "k3_scan_kernel"),
     # K4's device time counts every activity of the call: the kernel and
@@ -520,7 +544,8 @@ def phase_device(torch):
     k1_kernels = ptxas_paths(_build.build_log("fused_collective"),
                              ("k1_register_kernel", "k1_column_kernel"))
     k2_kernels = ptxas_paths(_build.build_log("spmd_collective"),
-                             ("k2_cluster_kernel", "k2_flags_kernel"))
+                             ("k2_cluster_kernel", "k2_flags_kernel",
+                              "k2_peers_kernel"))
     k4_kernels = ptxas_paths(_build.build_log("ssd_scan"), tuple(K4_KERNELS.values()))
     k3_kernels = ptxas_paths(_build.build_log("prefix_scan"), (KERNELS["k3"][3],))
     # the register and cluster kernels shrink VEC (or keep one row) so that
@@ -2281,9 +2306,8 @@ def phase_profile(torch, device):
                 row[label]["dispatch_us"] = before_us
                 row[label]["dispatch_host_share"] = (
                     1 - timing.device_us / before_us)
-        # K2: the per-rank fused lowering under the port's shard_map (the
-        # engine's planned descriptors bind one axis name per axis, and K2
-        # takes a one-axis mesh only, so no descriptor reaches it)
+        # K2: the per-rank fused lowering under the port's shard_map, its
+        # co-resident ranks on one axis
         plan = planner.build_plan("SCAN", (p,), "sum", nb)
         run = shard_map(backends.get_backend("pallas").lower(
             plan, "sum", axis_names=("i",)), ring, ("i",), "i")
@@ -2543,7 +2567,7 @@ def phase_spmd(torch, device):
     torch.cuda.synchronize()
 
     # the launches plan_launch gives each path
-    planned = {"cluster": 0, "flags": 0}
+    planned = {"cluster": 0, "flags": 0, "peers": 0}
     for p, mesh, label, plan, opname, dtype, nb, x, run in runs:
         (ph,) = plan.phases
         n_leaves = len(leaves_of(x)) if x is not None else 1
@@ -2670,6 +2694,99 @@ def phase_spmd(torch, device):
           "ok": True})
     torch.cuda.empty_cache()
     return launches
+
+
+#: processes of the procs phase, all on the one card
+PROCS_PS = (2, 4, 8)
+#: the kernels line's row of K2's peers path: SCAN sum float32 at this p,
+#: 1 MiB a rank
+PROCS_HEAD = (4, "SCAN", 1 << 20)
+PROCS_LABEL = ("p processes sharing one card, one CUDA context each, which "
+               "the GPU time-slices: a time spans the other ranks' slices; "
+               "not a network latency")
+
+
+def phase_procs(torch, device, card, smi):
+    """K2's peers path, one rank per process: ``procs_check`` in p = 2, 4
+    and 8 processes on the card (a gloo group through a ``file://`` store),
+    the engine in spmd and driver mode with ``backend="pallas"`` and with
+    the default backend on the same descriptors, every rank's result held
+    bitwise to the co-resident K2 and the plain version, each process's K2
+    launches to its comm phases; then the times both ways. Returns K2's
+    peers row of the kernels line."""
+    import shutil
+    from statistics import median
+
+    from repro_torch.kernels import _build
+    from repro_torch.testing import procs_check
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    if "Exclusive_Process" in mode:
+        raise AssertionError(
+            f"procs: the card's compute mode is {mode}: one process at a time "
+            "may hold a context, so p processes cannot share it")
+    _build.load_library("spmd_collective")  # built here: the ranks load it
+    t_phase = time.perf_counter()
+    head = None
+    launches = 0
+    for p in PROCS_PS:
+        work = REPO / "build" / "procs" / f"p{p}"
+        shutil.rmtree(work, ignore_errors=True)
+        got = procs_check.check(p, work, device="cuda", timeout=300.0)
+        launches += sum(got["peers_launches_per_rank"])
+        times = []
+        for i, row in enumerate(got["times"][0]):
+            ranks = [t[i] for t in got["times"]]
+            agg = {k: [r[k] for r in ranks] for k in row
+                   if k.endswith("_ms")}
+            times.append({"coll": row["coll"],
+                          "bytes_per_rank": row["bytes_per_rank"],
+                          # the median over ranks of each rank's median
+                          **{k: (median(v) if None not in v else None)
+                             for k, v in agg.items()},
+                          "k2_event_ms_by_rank": agg["k2_event_ms"]})
+        emit({"phase": "procs", "p": p, "compute_mode": mode,
+              "jobs": got["jobs"], "dispatches_per_rank":
+              got["dispatches_per_rank"],
+              "peers_launches_per_rank": got["peers_launches_per_rank"],
+              "devices": got["devices"], "run_s": got["run_s"],
+              "spawn_s": got["spawn_s"], "ok": True})
+        emit({"phase": "procs_times", "p": p, "nvidia_smi": smi,
+              "ranks": PROCS_LABEL, "op": "sum", "dtype": "float32",
+              "timing": "per rank: host clock around one dispatch bracketed "
+                        f"by synchronize, and CUDA events on its stream; "
+                        f"median of {2 * procs_check.TURN} after "
+                        f"{procs_check.WARM}, K2 and the spmd rounds in "
+                        "turns; then the median over ranks",
+              "rows": times})
+        if p == PROCS_HEAD[0]:
+            head = next(r for r in times if (r["coll"], r["bytes_per_rank"])
+                        == PROCS_HEAD[1:])
+    p, _, nb = PROCS_HEAD
+    numel = p * nb // 4
+    bound_ms = kernel_bytes("k2", phase="SCAN", p=p, numel=numel,
+                            dtype=torch.float32) / mem_bandwidth(card) * 1e3
+    emit({"phase": "procs_done", "seconds": time.perf_counter() - t_phase,
+          "k2_peers_launches": launches})
+    return {
+        **kernel_ident("k2_peers"),
+        "launches": launches,
+        "max_abs_err": 0.0,  # every rank's digest equal to both references
+        "ms": head["k2_event_ms"],
+        "plain_ms": head["plain_event_ms"],
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        # no PyTorch call computes a scan across processes
+        "library_ms": None,
+        "timing": "events",
+        "path": "peers",
+        "host_ms": head["k2_host_ms"],
+        "spmd_rounds_ms": head["spmd_event_ms"],
+        "ranks": f"{p} processes on one card, time-sliced",
+    }
 
 
 #: the shapes where K1 and K2 are each timed on their new path beside the
@@ -4785,6 +4902,10 @@ def main() -> int:
     k2 = phase_times_spmd(torch, device, card, spmd_launches)
     onchip = phase_times_onchip(torch, card, entry_launches, cases)
     phase_times_k4(torch, device, card)
+    # K2's peers path last, away from the profiler's phases: run before
+    # ``profile``, its p processes were once followed there by two dropped
+    # device records
+    k2_peers = phase_procs(torch, device, card, smi)
     # the serving path's launches beside each kernel's own path: K3 under
     # every Mamba2-130m prefill and in every mesh shard, K1 under the
     # serving tenancy
@@ -4797,7 +4918,7 @@ def main() -> int:
         call: row["k3_charges"] for call, row in roof.items()}
     k1["serve_launches"] = serve["tenancy"]["k1_launches"]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
-    emit({"kernels": [k1, k2, *onchip]})
+    emit({"kernels": [k1, k2, k2_peers, *onchip]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

@@ -14,7 +14,8 @@ stand behind one interface:
   ``torch.distributed`` group whose rank ``g`` sits at mesh coordinate
   ``unravel(g, shape)``. A per-rank value is the process's own tensor;
   ``axis_index`` is a 0-d int32 tensor; a permute is
-  ``dist.batch_isend_irecv``, and a rank with no in-edge gets zeros.
+  ``dist.batch_isend_irecv`` (through host copies for CUDA leaves under
+  gloo), and a rank with no in-edge gets zeros.
 
 :func:`shard_map` binds the mesh's axis names for one call of ``fn``. Its
 contract maps *rows*, not blocks: every input leaf carries a leading axis of
@@ -427,22 +428,34 @@ class _PerProcess(_RankGroup):
         flat = int(np.ravel_multi_index(tuple(c), self.mesh.shape))
         return int(self.mesh.devices.flat[flat])
 
+    def host_staged(self, leaves: Sequence[torch.Tensor]) -> bool:
+        """Do point-to-point messages of ``leaves`` go through host copies?
+        Gloo's send and receive take host memory only: given a CUDA tensor
+        they read its device address as a host one and fail (``writev ...
+        Bad address``, seen on an H100). NCCL takes device tensors."""
+        import torch.distributed as dist
+
+        return (any(a.device.type != "cpu" for a in leaves)
+                and dist.get_backend(self.mesh.group) == "gloo")
+
     def ppermute(self, tree: PyTree, name: str, perm) -> PyTree:
         import torch.distributed as dist
 
         ax = self.mesh.axis(name)
         me = self.coords[ax]
         leaves, spec = tree_flatten(tree)
+        staged = self.host_staged(leaves)
+        wire = [a.cpu() for a in leaves] if staged else leaves
         outs = [torch.zeros_like(a, memory_format=torch.contiguous_format)
-                for a in leaves]  # gloo receives into contiguous buffers
+                for a in wire]  # gloo receives into contiguous buffers
         ops = []
         for s, d in perm:
             if s == me and d == me:
-                outs = [a.clone() for a in leaves]
+                outs = [a.clone() for a in wire]
             elif s == me:
                 peer = self._peer(ax, d)
                 ops += [dist.P2POp(dist.isend, a.contiguous(), peer,
-                                   self.mesh.group) for a in leaves]
+                                   self.mesh.group) for a in wire]
             elif d == me:
                 peer = self._peer(ax, s)
                 ops += [dist.P2POp(dist.irecv, o, peer, self.mesh.group)
@@ -450,6 +463,8 @@ class _PerProcess(_RankGroup):
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
+        if staged:
+            outs = [o.to(a.device) for o, a in zip(outs, leaves)]
         return tree_unflatten(outs, spec)
 
     def rank_ones(self, dtype: torch.dtype) -> torch.Tensor:

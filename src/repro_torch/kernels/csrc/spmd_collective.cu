@@ -64,14 +64,13 @@
 //   25 MiB), and no tile shape, transport or barrier placement tried moved
 //   the 1 MiB cases by more than 15%: that network, not HBM, bounds them.
 //
-// The flags path (p > 16, or p = 1; the ground of the multi-GPU form): a
-// rank's program is a set of thread blocks, each owning tiles of the rank's
-// payload (a grid-stride loop over tiles). For exchange s of tile t, a block
-// stores its accumulator tile into its partner's receive region for
-// exchange s, through a table of p peer pointers (a symmetric layout:
-// every rank's region has the same shape), then raises the partner's
-// signal flag (s, t). Before it reads, the block waits on its own flag
-// (s, t), then masks and combines.
+// The flags path (p > 16, or p = 1): a rank's program is a set of thread
+// blocks, each owning tiles of the rank's payload (a grid-stride loop over
+// tiles). For exchange s of tile t, a block stores its accumulator tile into
+// its partner's receive region for exchange s, through a table of p peer
+// pointers (a symmetric layout: every rank's region has the same shape), then
+// raises the partner's signal flag (s, t). Before it reads, the block waits on
+// its own flag (s, t), then masks and combines.
 //   * Co-residency: a block spinning on a flag whose writer is not resident
 //     waits forever, so the launch is cooperative and its grid capped at the
 //     blocks the device holds at once; a launch that cannot be made resident
@@ -82,17 +81,46 @@
 //   * Flags across calls: a flag is raised to the launch's epoch, a counter
 //     the wrapper passes in and bumps per launch, and a reader waits for
 //     equality, so one launch never sees the flags of the one before it.
-//   * Ordering: data stores, __syncthreads(), a fence and a st.release.gpu
-//     on the flag by one thread; the reader's ld.acquire.gpu spin, then
-//     __syncthreads(), then L2 loads (ld.global.cg) of the received tile.
-//     Peers on other GPUs would need .sys scope; on one device .gpu holds.
-//   * No hang: every spin is bounded by a clock64 deadline. A block that
-//     times out writes (code, rank, exchange, tile) into a device status
-//     word and leaves; the others see the word and leave too. The wrapper
-//     reads the word after the launch and raises.
-//   On one GPU all p ranks run in one launch (blockIdx.y = rank) and the
-//   peer tables point into one stacked allocation; given tables of pointers
-//   that lie on other GPUs, the same kernel is the multi-GPU form.
+//   * Ordering: data stores, __syncthreads(), a fence and a st.release on the
+//     flag by one thread; the reader's ld.acquire spin, then __syncthreads(),
+//     then L2 loads (ld.global.cg) of the received tile.
+//   * No hang: every spin is bounded by a deadline. A block that times out
+//     writes (code, rank, exchange, tile) into a device status word and
+//     leaves; the other blocks of its launch see the word and leave too. The
+//     wrapper reads the word after the launch and raises.
+//   On one GPU all p ranks run in one launch (k2_flags_kernel, rank =
+//   blockIdx.y), the peer tables point into one stacked allocation, and the
+//   flags are released and acquired at .gpu scope.
+//
+// The peers path (one rank per process, any p): the same program, launched
+// by each process for its own rank only (k2_peers_kernel, the rank passed
+// in, grid.y = 1), its leaves the process's own. The peer tables hold, for
+// every rank, an address in that rank's block of device memory, which the
+// wrapper exports with cudaIpcGetMemHandle and every other process maps with
+// cudaIpcOpenMemHandle (spmd_collective._PeerWorkspace); a rank's puts go
+// straight into its partner's block. Its peers sit in other processes, on
+// the same GPU or another, so:
+//   * Scope: flags and done words are released and acquired at .sys scope,
+//     data is fenced with __threadfence_system().
+//   * Slot reuse across launches: the blocks are registered once and reused,
+//     so a rank that has finished launch e may start launch e + 1 while a
+//     partner still reads launch e. Each block holds two sets of flags and
+//     receive regions, used by epoch parity, and a done word: a rank's launch
+//     e first publishes done = e - 1 (its launch e - 1 has ended, so every
+//     read of that launch is over), and a block waits, before its first put,
+//     until each partner's done word is at least e - 2, the last launch that
+//     used the parity set it is about to write. The rounds and the operand
+//     order are the flags path's, so results are bitwise those of every
+//     other K2 path.
+//   * Deadline: %globaltimer, not clock64: the contexts of the processes on
+//     one GPU are time-sliced, so a wait spans other processes' slices, and
+//     a preempted block may resume on another SM, whose clock64 differs.
+//   * Co-residency: the launch is cooperative, so all of a rank's blocks are
+//     resident together; ranks on one GPU run in turns, each during its
+//     context's time slice, and a spinning rank yields at the slice's end.
+//   The same kernel and tables are the multi-GPU form: with each rank on its
+//   own GPU, the mapped addresses lie in the peers' memory (NVLink, peer
+//   access enabled lazily by cudaIpcOpenMemHandle).
 //
 // Bound: memory, like K1 (the same function): p*M*itemsize bytes read per
 // leaf and written once per output stream. The cluster path's rounds stay in
@@ -108,7 +136,7 @@ using namespace collective;
 
 namespace {
 
-enum Path { PATH_CLUSTER = 0, PATH_FLAGS = 1 };
+enum Path { PATH_CLUSTER = 0, PATH_FLAGS = 1, PATH_PEERS = 2 };
 
 // ---------------------------------------------------------------------------
 // the flags path
@@ -122,17 +150,21 @@ enum Status { STATUS_OK = 0, STATUS_TIMEOUT = 1 };
 
 template <typename T>
 struct Args {
-  const T* x[MAX_LEAVES];  // stacked (p, M) inputs: rank r's row at x + r*M
+  const T* x[MAX_LEAVES];  // rank r's row at x + r*row (co-resident: stacked (p, M))
   T* y[MAX_LEAVES];        // the phase's output (the scan, or the total)
   T* t[MAX_LEAVES];        // FUSED only: the axis total
   T* const* recv;          // peer table: rank q's receive region [exchange][leaf][M]
   unsigned* const* flags;  // peer table: rank q's signal flags [exchange][tile]
+  unsigned* const* done;   // peers path: peer table of the ranks' done words
   int* status;             // (code, rank, exchange, tile); all zero = fine
   long long M;             // elements per leaf and rank
+  long long row;           // elements between two ranks' rows: M co-resident, 0 peers
   long long ntiles;        // tiles per leaf and rank
-  long long timeout_cycles;
+  long long timeout;       // clock64 cycles (flags path) or nanoseconds (peers path)
   unsigned epoch;          // this launch's flag value (never 0)
+  unsigned done_need;      // peers path: a partner's done word before any put
   int p;                   // ranks
+  int rank;                // peers path: this process's rank
   int inclusive;
 };
 
@@ -153,30 +185,95 @@ __device__ __forceinline__ T load_cg(const T* ptr) {
   return out;
 }
 
+// SYS: peers in other processes or on other GPUs (the peers path)
+template <bool SYS>
 __device__ __forceinline__ void signal_release(unsigned* flag, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(flag), "r"(v) : "memory");
+  if (SYS)
+    asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(flag), "r"(v) : "memory");
+  else
+    asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(flag), "r"(v) : "memory");
 }
 
+template <bool SYS>
 __device__ __forceinline__ unsigned poll_acquire(const unsigned* flag) {
   unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(flag) : "memory");
+  if (SYS)
+    asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(flag) : "memory");
+  else
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(flag) : "memory");
   return v;
 }
 
-template <typename T, class Op, int KIND>
-__global__ void __launch_bounds__(BLOCK) k2_flags_kernel(Args<T> a) {
+// the wait deadline's clock: clock64 cycles on one launch's SMs, the global
+// nanosecond timer across time-sliced contexts
+template <bool SYS>
+__device__ __forceinline__ long long wait_clock() {
+  if (!SYS) return clock64();
+  unsigned long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return (long long)ns;
+}
+
+// A block gives up a wait: the first to time out writes (code, rank,
+// exchange, tile) into the status word
+__device__ __forceinline__ void time_out(int* status, int rank, int e, long long tile) {
+  if (atomicCAS(status, STATUS_OK, STATUS_TIMEOUT) == STATUS_OK) {
+    status[1] = rank;
+    status[2] = e;
+    status[3] = (int)tile;
+    __threadfence();
+  }
+}
+
+// One rank's program on the flags path (PEERS false: every rank in one
+// launch, rank = blockIdx.y) or the peers path (PEERS true: one rank a
+// launch, its partners in other processes)
+template <typename T, class Op, int KIND, bool PEERS>
+__device__ __forceinline__ void rank_program(const Args<T>& a, const int rank) {
   constexpr int L = Op::L;
   __shared__ int abort_block;
   const int p = a.p;
-  const int rank = blockIdx.y;
   const long long M = a.M;
   const T zero = Num<T>::zero();
   int nsteps = 0;
   while ((1 << nsteps) < p) ++nsteps;
   T* const own_recv = a.recv[rank];
   const unsigned* const own_flags = a.flags[rank];
-  if (threadIdx.x == 0) abort_block = 0;
+  if (threadIdx.x == 0) {
+    abort_block = 0;
+    if (PEERS) {
+      // launch e - 1 of this rank has ended (stream order): its reads of
+      // the other parity set are over
+      if (blockIdx.x == 0) signal_release<true>(a.done[rank], a.epoch - 1);
+      // before the first put: every partner has ended the launch that last
+      // used this parity set (exchange -1 in a timeout names this wait)
+      if (a.done_need > 0) {
+        auto wait_done = [&](int q) {
+          const long long deadline = wait_clock<true>() + a.timeout;
+          while (!abort_block && poll_acquire<true>(a.done[q]) < a.done_need) {
+            if (*(volatile int*)a.status != STATUS_OK) abort_block = 1;
+            if (wait_clock<true>() > deadline) {
+              time_out(a.status, rank, -1, -1);
+              abort_block = 1;
+            }
+            __nanosleep(64);
+          }
+        };
+        if (KIND == KIND_BUTTERFLY) {
+          for (int k = 0; k < nsteps; ++k) wait_done(rank ^ (1 << k));
+        } else {
+          for (int k = 0; k < nsteps; ++k) {
+            wait_done((rank + (1 << k)) % p);
+            if (KIND == KIND_FUSED) wait_done((rank - (1 << k) + p) % p);
+          }
+          if (!a.inclusive) wait_done((rank + 1) % p);
+          if (KIND == KIND_FUSED && a.inclusive) wait_done((rank - 1 + p) % p);
+        }
+      }
+    }
+  }
   __syncthreads();
+  if (abort_block) return;
 
   T acc[2][L][VEC];  // [stream][leaf][element]: stream 0 prefix, 1 suffix
   T rv[L][VEC];
@@ -199,28 +296,26 @@ __global__ void __launch_bounds__(BLOCK) k2_flags_kernel(Args<T> a) {
     auto publish = [&](int dst0, int e0, int dst1, int e1) {
       __syncthreads();
       if (threadIdx.x == 0) {
-        __threadfence();
-        signal_release(a.flags[dst0] + (long long)e0 * a.ntiles + tile, a.epoch);
-        if (dst1 >= 0) signal_release(a.flags[dst1] + (long long)e1 * a.ntiles + tile, a.epoch);
+        if (PEERS)
+          __threadfence_system();
+        else
+          __threadfence();
+        signal_release<PEERS>(a.flags[dst0] + (long long)e0 * a.ntiles + tile, a.epoch);
+        if (dst1 >= 0) signal_release<PEERS>(a.flags[dst1] + (long long)e1 * a.ntiles + tile, a.epoch);
       }
     };
     // wait for exchange e of this tile, then read it into rv; false = abort
     auto receive = [&](int e) -> bool {
       if (threadIdx.x == 0) {
         const unsigned* flag = own_flags + (long long)e * a.ntiles + tile;
-        const long long deadline = clock64() + a.timeout_cycles;
-        while (poll_acquire(flag) != a.epoch) {
+        const long long deadline = wait_clock<PEERS>() + a.timeout;
+        while (poll_acquire<PEERS>(flag) != a.epoch) {
           if (*(volatile int*)a.status != STATUS_OK) {
             abort_block = 1;
             break;
           }
-          if (clock64() > deadline) {
-            if (atomicCAS(a.status, STATUS_OK, STATUS_TIMEOUT) == STATUS_OK) {
-              a.status[1] = rank;
-              a.status[2] = e;
-              a.status[3] = (int)tile;
-              __threadfence();
-            }
+          if (wait_clock<PEERS>() > deadline) {
+            time_out(a.status, rank, e, tile);
             abort_block = 1;
             break;
           }
@@ -252,7 +347,7 @@ __global__ void __launch_bounds__(BLOCK) k2_flags_kernel(Args<T> a) {
 
     for (int l = 0; l < L; ++l)
       for (int v = 0; v < VEC; ++v) {
-        const T xv = in_range(v) ? a.x[l][(long long)rank * M + base + (long long)v * BLOCK] : zero;
+        const T xv = in_range(v) ? a.x[l][(long long)rank * a.row + base + (long long)v * BLOCK] : zero;
         acc[0][l][v] = xv;
         acc[1][l][v] = xv;
       }
@@ -299,7 +394,7 @@ __global__ void __launch_bounds__(BLOCK) k2_flags_kernel(Args<T> a) {
     if (KIND != KIND_FUSED) {
       for (int l = 0; l < L; ++l)
         for (int v = 0; v < VEC; ++v)
-          if (in_range(v)) a.y[l][(long long)rank * M + base + (long long)v * BLOCK] = acc[0][l][v];
+          if (in_range(v)) a.y[l][(long long)rank * a.row + base + (long long)v * BLOCK] = acc[0][l][v];
       continue;
     }
     // fused exits: inclusive total = combine(pre, suffix of rank r+1 or
@@ -321,13 +416,23 @@ __global__ void __launch_bounds__(BLOCK) k2_flags_kernel(Args<T> a) {
       }
       Op::combine(lhs, rhs, res);
       if (!in_range(v)) continue;
-      const long long at = (long long)rank * M + base + (long long)v * BLOCK;
+      const long long at = (long long)rank * a.row + base + (long long)v * BLOCK;
       for (int l = 0; l < L; ++l) {
         a.t[l][at] = res[l];
         a.y[l][at] = (a.inclusive || rank != 0) ? lhs[l] : zero;
       }
     }
   }
+}
+
+template <typename T, class Op, int KIND>
+__global__ void __launch_bounds__(BLOCK) k2_flags_kernel(Args<T> a) {
+  rank_program<T, Op, KIND, false>(a, blockIdx.y);
+}
+
+template <typename T, class Op, int KIND>
+__global__ void __launch_bounds__(BLOCK) k2_peers_kernel(Args<T> a) {
+  rank_program<T, Op, KIND, true>(a, a.rank);
 }
 
 // ---------------------------------------------------------------------------
@@ -702,15 +807,15 @@ int exchanges(int kind, int p, int inclusive) {
 
 // What the launch needs to know of the device, queried once per device: the
 // queries cost milliseconds a call, many times the kernel itself. Filled at
-// each kernel instantiation's first launch: per_sm, the flags kernel's
-// resident blocks per SM by (dtype, op, kind); clusters, one more than the
-// clusters of the cluster kernel that fit at once, by (dtype, op, kind,
-// inclusive, p), 0 while unknown; smem, the dynamic shared memory the
-// cluster kernel of (dtype, op, kind) may use so far.
+// each kernel instantiation's first launch: per_sm, the flags and peers
+// kernels' resident blocks per SM by (kernel, dtype, op, kind); clusters,
+// one more than the clusters of the cluster kernel that fit at once, by
+// (dtype, op, kind, inclusive, p), 0 while unknown; smem, the dynamic shared
+// memory the cluster kernel of (dtype, op, kind) may use so far.
 struct DeviceInfo {
   int sms = 0, coop = 0, khz = 0;
   bool ready = false;
-  int per_sm[NUM_DTYPES][NUM_OPS][NUM_KINDS] = {};
+  int per_sm[2][NUM_DTYPES][NUM_OPS][NUM_KINDS] = {};
   int clusters[NUM_DTYPES][NUM_OPS][NUM_KINDS][2][cl::MAX_RANKS + 1] = {};
   int smem[NUM_DTYPES][NUM_OPS][NUM_KINDS] = {};
 };
@@ -740,14 +845,17 @@ cudaError_t device_info(DeviceInfo** out) {
 // one launch as the entry received it, passed down every level below it
 struct Call {
   int path, kind, op, dtype, inclusive, p, aligned, shared_bytes;
-  long long M, tile, ntiles, timeout_cycles;
+  long long M, tile, ntiles;
+  long long timeout;  // clock64 cycles (cluster, flags) or nanoseconds (peers)
   const void* x[MAX_LEAVES];
   void* y[MAX_LEAVES];
   void* t[MAX_LEAVES];
   void* recv;
   void* flags;
+  void* done;  // peers path only
   void* status;
-  unsigned epoch;
+  unsigned epoch, done_need;
+  int rank;    // peers path only
   cudaStream_t stream;
   DeviceInfo* info;
   int* made;  // kernels launched, each counted once cudaGetLastError() passed it
@@ -759,8 +867,11 @@ int launched(const Call& c) {
   return (int)err;
 }
 
-template <typename T, class Op, int KIND>
-int launch_flags(const Call& c) {
+// the flags path (PEERS false: all p ranks, grid.y = p) or the peers path
+// (PEERS true: this process's rank, grid.y = 1); both cooperative, grid.x
+// capped at the blocks the device holds at once
+template <typename T, class Op, int KIND, bool PEERS>
+int launch_rank_program(const Call& c) {
   Args<T> a;
   for (int l = 0; l < MAX_LEAVES; ++l) {
     a.x[l] = static_cast<const T*>(c.x[l]);
@@ -769,15 +880,20 @@ int launch_flags(const Call& c) {
   }
   a.recv = static_cast<T* const*>(c.recv);
   a.flags = static_cast<unsigned* const*>(c.flags);
+  a.done = static_cast<unsigned* const*>(c.done);
   a.status = static_cast<int*>(c.status);
   a.M = c.M;
+  a.row = PEERS ? 0 : c.M;
   a.ntiles = c.ntiles;
-  a.timeout_cycles = c.timeout_cycles;
+  a.timeout = c.timeout;
   a.epoch = c.epoch;
+  a.done_need = c.done_need;
   a.p = c.p;
+  a.rank = c.rank;
   a.inclusive = c.inclusive;
-  const void* fn = reinterpret_cast<const void*>(&k2_flags_kernel<T, Op, KIND>);
-  int& per_sm = c.info->per_sm[c.dtype][c.op][c.kind];
+  const void* fn = PEERS ? reinterpret_cast<const void*>(&k2_peers_kernel<T, Op, KIND>)
+                         : reinterpret_cast<const void*>(&k2_flags_kernel<T, Op, KIND>);
+  int& per_sm = c.info->per_sm[PEERS ? 1 : 0][c.dtype][c.op][c.kind];
   {
     std::lock_guard<std::mutex> hold(info_lock);
     if (per_sm == 0) {
@@ -786,13 +902,14 @@ int launch_flags(const Call& c) {
     }
   }
   if (!c.info->coop) return -4;
+  const int ranks = PEERS ? 1 : a.p;  // ranks of this launch
   const long long resident = (long long)per_sm * c.info->sms;
-  if (a.p > resident || a.p > 65535) return -3;  // ranks cannot all be resident
-  long long per_rank = resident / a.p;
+  if (ranks > resident || ranks > 65535) return -3;  // ranks cannot all be resident
+  long long per_rank = resident / ranks;
   if (per_rank > a.ntiles) per_rank = a.ntiles;
   void* params[] = {&a};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      fn, dim3((unsigned)per_rank, (unsigned)a.p), dim3(BLOCK), params, 0, c.stream);
+      fn, dim3((unsigned)per_rank, (unsigned)ranks), dim3(BLOCK), params, 0, c.stream);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear the launch's error so later calls do not see it
     return (int)err;
@@ -809,7 +926,7 @@ int launch_cluster(const Call& c) {
     a.t[l] = static_cast<T*>(c.t[l]);
   }
   a.M = c.M;
-  a.timeout_cycles = c.timeout_cycles;
+  a.timeout_cycles = c.timeout;
   a.p = c.p;
   a.slots = exchanges(c.kind, c.p, c.inclusive);
   a.inclusive = c.inclusive;
@@ -872,9 +989,14 @@ int launch_op(const Call& c) {
     case PATH_CLUSTER * NUM_KINDS + KIND_SCAN: return launch_cluster<T, Op, KIND_SCAN>(c);
     case PATH_CLUSTER * NUM_KINDS + KIND_FUSED: return launch_cluster<T, Op, KIND_FUSED>(c);
     case PATH_CLUSTER * NUM_KINDS + KIND_BUTTERFLY: return launch_cluster<T, Op, KIND_BUTTERFLY>(c);
-    case PATH_FLAGS * NUM_KINDS + KIND_SCAN: return launch_flags<T, Op, KIND_SCAN>(c);
-    case PATH_FLAGS * NUM_KINDS + KIND_FUSED: return launch_flags<T, Op, KIND_FUSED>(c);
-    case PATH_FLAGS * NUM_KINDS + KIND_BUTTERFLY: return launch_flags<T, Op, KIND_BUTTERFLY>(c);
+    case PATH_FLAGS * NUM_KINDS + KIND_SCAN: return launch_rank_program<T, Op, KIND_SCAN, false>(c);
+    case PATH_FLAGS * NUM_KINDS + KIND_FUSED: return launch_rank_program<T, Op, KIND_FUSED, false>(c);
+    case PATH_FLAGS * NUM_KINDS + KIND_BUTTERFLY:
+      return launch_rank_program<T, Op, KIND_BUTTERFLY, false>(c);
+    case PATH_PEERS * NUM_KINDS + KIND_SCAN: return launch_rank_program<T, Op, KIND_SCAN, true>(c);
+    case PATH_PEERS * NUM_KINDS + KIND_FUSED: return launch_rank_program<T, Op, KIND_FUSED, true>(c);
+    case PATH_PEERS * NUM_KINDS + KIND_BUTTERFLY:
+      return launch_rank_program<T, Op, KIND_BUTTERFLY, true>(c);
     default: return -1;
   }
 }
@@ -903,6 +1025,68 @@ int launch_int_ops(const Call& c) {
   }
 }
 
+// fills what every entry shares; returns 0 or the entry's error
+int begin(Call& c, int path, int kind, int op, int dtype, int inclusive, int p, long long M,
+          long long tile, const void* x0, const void* x1, const void* x2, void* y0, void* y1,
+          void* y2, void* t0, void* t1, void* t2, void* stream, int* launches) {
+  *launches = 0;
+  if (dtype < 0 || dtype >= NUM_DTYPES || op < 0 || op >= NUM_OPS || kind < 0 ||
+      kind >= NUM_KINDS || p < 1 || M <= 0 || tile <= 0)
+    return -1;
+  DeviceInfo* info = nullptr;
+  {
+    std::lock_guard<std::mutex> hold(info_lock);
+    cudaError_t err = device_info(&info);
+    if (err != cudaSuccess) return (int)err;
+  }
+  c = Call{};
+  c.path = path;
+  c.kind = kind;
+  c.op = op;
+  c.dtype = dtype;
+  c.inclusive = inclusive;
+  c.p = p;
+  c.M = M;
+  c.tile = tile;
+  c.ntiles = (M + tile - 1) / tile;
+  const void* x[MAX_LEAVES] = {x0, x1, x2};
+  void* y[MAX_LEAVES] = {y0, y1, y2};
+  void* t[MAX_LEAVES] = {t0, t1, t2};
+  for (int l = 0; l < MAX_LEAVES; ++l) {
+    c.x[l] = x[l];
+    c.y[l] = y[l];
+    c.t[l] = t[l];
+  }
+  c.stream = static_cast<cudaStream_t>(stream);
+  c.info = info;
+  c.made = launches;
+  return 0;
+}
+
+int run(const Call& c) {
+  switch (c.dtype) {
+    case DT_FLOAT32: return launch_float_ops<float>(c);
+    case DT_BFLOAT16: return launch_float_ops<__nv_bfloat16>(c);
+    case DT_FLOAT16: return launch_float_ops<__half>(c);
+    case DT_INT32: return launch_int_ops<int32_t>(c);
+    case DT_INT8: return launch_int_ops<int8_t>(c);
+    default: return -1;
+  }
+}
+
+// cudaSetDevice(device) for the scope, the caller's device restored after
+struct OnDevice {
+  int before = -1;
+  cudaError_t err;
+  explicit OnDevice(int device) {
+    err = cudaGetDevice(&before);
+    if (err == cudaSuccess) err = cudaSetDevice(device);
+  }
+  ~OnDevice() {
+    if (before >= 0) cudaSetDevice(before);
+  }
+};
+
 }  // namespace
 
 // Launch one comm phase for all p co-resident ranks on the path
@@ -922,57 +1106,112 @@ extern "C" int k2_spmd_comm(int path, int kind, int op, int dtype, int inclusive
                             void* y2, void* t0, void* t1, void* t2, void* recv, void* flags,
                             void* status, unsigned epoch, double timeout_s, void* stream,
                             int* launches) {
-  *launches = 0;
-  if (dtype < 0 || dtype >= NUM_DTYPES || op < 0 || op >= NUM_OPS || kind < 0 ||
-      kind >= NUM_KINDS || p < 1 || M <= 0)
-    return -1;
   // the cluster path's tile and shared bytes depend on the type and
   // operator: launch_cluster checks them
   if (path == PATH_FLAGS) {
-    if (tile != TILE || shared_bytes != 0) return -1;
-  } else if (path != PATH_CLUSTER || tile <= 0) {
+    if (tile != TILE || shared_bytes != 0) {
+      *launches = 0;
+      return -1;
+    }
+  } else if (path != PATH_CLUSTER) {
+    *launches = 0;
     return -1;
   }
-  DeviceInfo* info = nullptr;
-  {
-    std::lock_guard<std::mutex> hold(info_lock);
-    cudaError_t err = device_info(&info);
-    if (err != cudaSuccess) return (int)err;
-  }
   Call c;
-  c.path = path;
-  c.kind = kind;
-  c.op = op;
-  c.dtype = dtype;
-  c.inclusive = inclusive;
-  c.p = p;
+  const int rc = begin(c, path, kind, op, dtype, inclusive, p, M, tile, x0, x1, x2, y0, y1, y2,
+                       t0, t1, t2, stream, launches);
+  if (rc != 0) return rc;
   c.aligned = aligned;
   c.shared_bytes = shared_bytes;
-  c.M = M;
-  c.tile = tile;
-  c.ntiles = (M + tile - 1) / tile;
-  c.timeout_cycles = (long long)(timeout_s * 1e3 * (double)info->khz);
-  const void* x[MAX_LEAVES] = {x0, x1, x2};
-  void* y[MAX_LEAVES] = {y0, y1, y2};
-  void* t[MAX_LEAVES] = {t0, t1, t2};
-  for (int l = 0; l < MAX_LEAVES; ++l) {
-    c.x[l] = x[l];
-    c.y[l] = y[l];
-    c.t[l] = t[l];
-  }
+  c.timeout = (long long)(timeout_s * 1e3 * (double)c.info->khz);
   c.recv = recv;
   c.flags = flags;
   c.status = status;
   c.epoch = epoch;
-  c.stream = static_cast<cudaStream_t>(stream);
-  c.info = info;
-  c.made = launches;
-  switch (dtype) {
-    case DT_FLOAT32: return launch_float_ops<float>(c);
-    case DT_BFLOAT16: return launch_float_ops<__nv_bfloat16>(c);
-    case DT_FLOAT16: return launch_float_ops<__half>(c);
-    case DT_INT32: return launch_int_ops<int32_t>(c);
-    case DT_INT8: return launch_int_ops<int8_t>(c);
-    default: return -1;
+  return run(c);
+}
+
+// Launch one comm phase for this process's rank of p, one rank a process
+// (the peers path). recv, flags and done are device tables of p pointers
+// into the ranks' mapped blocks: rank q's receive region and flags of this
+// launch's parity set, and q's done word; status is this process's device
+// int[4]. The launch publishes done = epoch - 1 and waits, before its first
+// put, for each partner's done word to reach done_need (0: no wait). Returns
+// as k2_spmd_comm.
+extern "C" int k2_spmd_peers(int kind, int op, int dtype, int inclusive, int p, int rank,
+                             long long M, long long tile, const void* x0, const void* x1,
+                             const void* x2, void* y0, void* y1, void* y2, void* t0, void* t1,
+                             void* t2, void* recv, void* flags, void* done, void* status,
+                             unsigned epoch, unsigned done_need, double timeout_s, void* stream,
+                             int* launches) {
+  if (tile != TILE || rank < 0 || rank >= p || epoch == 0) {
+    *launches = 0;
+    return -1;
   }
+  Call c;
+  const int rc = begin(c, PATH_PEERS, kind, op, dtype, inclusive, p, M, tile, x0, x1, x2, y0, y1,
+                       y2, t0, t1, t2, stream, launches);
+  if (rc != 0) return rc;
+  c.timeout = (long long)(timeout_s * 1e9);  // %globaltimer nanoseconds
+  c.recv = recv;
+  c.flags = flags;
+  c.done = done;
+  c.status = status;
+  c.epoch = epoch;
+  c.done_need = done_need;
+  c.rank = rank;
+  return run(c);
+}
+
+// The peers path's blocks of device memory, shared between processes with
+// legacy CUDA IPC. k2_ipc_alloc: a zeroed block of `bytes` on `device` and
+// its cudaIpcMemHandle_t (64 bytes into `handle`); k2_ipc_open: another
+// process's block mapped into this one (peer access enabled lazily, for a
+// block on another GPU); k2_ipc_close: unmap it; k2_ipc_free: free this
+// process's own block. Each returns the CUDA error (0 = success) and leaves
+// the caller's current device as it was.
+extern "C" int k2_ipc_handle_bytes() { return (int)sizeof(cudaIpcMemHandle_t); }
+
+extern "C" int k2_ipc_alloc(int device, size_t bytes, void** ptr, void* handle) {
+  OnDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  *ptr = nullptr;
+  cudaError_t err = cudaMalloc(ptr, bytes);
+  if (err == cudaSuccess) err = cudaMemset(*ptr, 0, bytes);
+  cudaIpcMemHandle_t h;
+  if (err == cudaSuccess) err = cudaIpcGetMemHandle(&h, *ptr);
+  if (err != cudaSuccess) {
+    if (*ptr != nullptr) cudaFree(*ptr);
+    *ptr = nullptr;
+    cudaGetLastError();
+    return (int)err;
+  }
+  memcpy(handle, &h, sizeof(h));
+  return 0;
+}
+
+extern "C" int k2_ipc_open(int device, const void* handle, void** ptr) {
+  OnDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  cudaError_t err = cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
+}
+
+extern "C" int k2_ipc_close(int device, void* ptr) {
+  OnDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaError_t err = cudaIpcCloseMemHandle(ptr);
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
+}
+
+extern "C" int k2_ipc_free(int device, void* ptr) {
+  OnDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaError_t err = cudaFree(ptr);
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
 }

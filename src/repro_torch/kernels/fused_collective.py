@@ -173,6 +173,25 @@ def supports_plan(
     return True, ""
 
 
+def supports_rank_plan(
+    plan: CollectivePlan, axis_names: Optional[Sequence[str]] = None
+) -> Tuple[bool, str]:
+    """The port's envelope of the fused backend: :func:`supports_plan`'s,
+    except that ``axis_names`` may name every axis of a plan whose levels
+    are all of size 1 but one, as the engine's planned request over one
+    flat group (``axes=(1, p)``) gives. K2 then runs over the one axis of
+    more than one rank, and the size-1 levels run their local shortcuts,
+    as in the stacked form. The reference refuses such a plan with
+    ``multi_axis_mesh`` (its interpret-mode remote copies take one named
+    axis); a plan over two axes of more than one rank is refused with the
+    same token here."""
+    if (axis_names is not None and len(plan.sizes) > 1
+            and len(axis_names) == len(plan.sizes)
+            and sum(s > 1 for s in plan.sizes) == 1):
+        return supports_plan(plan, None)
+    return supports_plan(plan, axis_names)
+
+
 def kernel_round_structure(
     plan: CollectivePlan,
 ) -> Tuple[Tuple[str, int], ...]:
@@ -555,12 +574,17 @@ def _sim_fallback_fn(ph, op, backend) -> Callable[[PyTree], PyTree]:
 
 def _lower_fused_spmd(plan: CollectivePlan, op: AssocOp, axis_names):
     """The per-rank phase loop (``_lower_pallas_spmd``): COMBINE with the
-    rank-0 guard, IDENTITY, and one K2 launch per comm phase."""
+    rank-0 guard, IDENTITY, one K2 launch per comm phase on the active
+    level, and :func:`~repro_torch.offload.planner.spmd_phase`'s local
+    shortcuts on levels of one rank."""
     from repro_torch import compat
     from repro_torch.kernels.spmd_collective import comm_phase_spmd
+    from repro_torch.offload.planner import spmd_phase
 
-    name = axis_names[plan.order[0]]
-    p = plan.sizes[0]
+    names_l = tuple(axis_names[i] for i in plan.order)
+    lv_active = active_level(plan)
+    name = names_l[lv_active]
+    p = plan.logical_sizes[lv_active]
 
     def run(x: Optional[PyTree] = None) -> PyTree:
         regs = {}
@@ -574,8 +598,8 @@ def _lower_fused_spmd(plan: CollectivePlan, op: AssocOp, axis_names):
                 merged = op.combine(regs[ph.src[0]], regs[ph.src[1]])
                 if ph.guard_levels:
                     keep = None
-                    for _ in ph.guard_levels:
-                        z = compat.axis_index(name) == 0
+                    for lv in ph.guard_levels:
+                        z = compat.axis_index(names_l[lv]) == 0
                         keep = z if keep is None else keep & z
                     merged = alg._bwhere(keep, regs[ph.src[1]], merged)
                 regs[ph.dst] = merged
@@ -583,11 +607,15 @@ def _lower_fused_spmd(plan: CollectivePlan, op: AssocOp, axis_names):
             if ph.kind == PhaseKind.IDENTITY:
                 regs[ph.dst] = op.identity_like(regs[ph.src[0]])
                 continue
-            phase_op = MAX if ph.kind == PhaseKind.BARRIER else op
-            out = comm_phase_spmd(
-                ph.kind, p, name, phase_op, regs[ph.src[0]],
-                inclusive=ph.inclusive,
-            )
+            if ph.level == lv_active and ph.kind in _COMM_KINDS:
+                phase_op = MAX if ph.kind == PhaseKind.BARRIER else op
+                out = comm_phase_spmd(
+                    ph.kind, p, name, phase_op, regs[ph.src[0]],
+                    inclusive=ph.inclusive,
+                )
+            else:  # a level of one rank: no communication
+                out = spmd_phase(ph, regs[ph.src[0]], op, names_l[ph.level],
+                                 plan.logical_sizes[ph.level])
             if ph.kind == PhaseKind.FUSED_SCAN_TOTAL:
                 regs[ph.dst], regs[ph.dst2] = out
             else:
@@ -612,10 +640,11 @@ def lower_fused(
     of :func:`repro_torch.offload.planner.lower_sim`. With them: a function
     run per rank inside :func:`repro_torch.compat.shard_map` over one named
     axis (whose mesh decides the device), one K2 launch per comm phase, with
-    the calling convention of :func:`~repro_torch.offload.planner.lower_spmd`.
-    Both give the op-per-round lowerings' values (same arithmetic, operand
-    order and zero fills). Raises ``ValueError`` for plans outside
-    :func:`supports_plan`; callers wanting a soft fallback go through the
+    the calling convention of :func:`~repro_torch.offload.planner.lower_spmd`
+    (any number of named axes, all of one rank but the one K2 runs over:
+    :func:`supports_rank_plan`). Both give the op-per-round lowerings'
+    values (same arithmetic, operand order and zero fills). Raises
+    ``ValueError`` for plans outside :func:`supports_rank_plan`; callers wanting a soft fallback go through the
     lowering registry (:mod:`repro_torch.offload.backends`).
 
     ``traced=True`` (stacked leaves only) records, under a collecting
@@ -625,7 +654,7 @@ def lower_fused(
     is bracketed by two device syncs, so the phase span is its whole cost.
     """
     op = get_operator(plan.op_name if op is None else op)
-    ok, reason = supports_plan(plan, axis_names)
+    ok, reason = supports_rank_plan(plan, axis_names)
     if not ok:
         raise ValueError(
             f"plan not supported by the fused backend ({reason}); "

@@ -135,7 +135,7 @@ class FusedLowering:
     def capabilities(self, plan, axis_names=None):
         from repro_torch.kernels import fused_collective
 
-        return fused_collective.supports_plan(plan, axis_names)
+        return fused_collective.supports_rank_plan(plan, axis_names)
 
     def lower(self, plan, op=None, *, device="cuda", axis_names=None,
               traced=False):

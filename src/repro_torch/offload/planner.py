@@ -1076,6 +1076,44 @@ def lower_sim(
     return run
 
 
+def spmd_phase(
+    ph: PlanPhase, src: PyTree, op: AssocOp, name: str, p: int,
+    chunks: int = 1,
+):
+    """One comm phase of a plan per rank over axis ``name`` of ``p`` ranks,
+    op per round (:func:`lower_spmd`'s phase body); returns the phase's
+    output, or ``(scan, total)`` for FUSED_SCAN_TOTAL."""
+    from repro_torch import compat
+
+    backend = alg.SpmdBackend(name, p)
+    if ph.kind == PhaseKind.FUSED_SCAN_TOTAL:
+        if chunks > 1:
+            return _chunked_scan_total(
+                backend, src, op, inclusive=ph.inclusive,
+                chunks=chunks, min_ndim=1 + compat.rank_dims(name),
+            )
+        return alg.scan_total_schedule(backend, src, op, inclusive=ph.inclusive)
+    if ph.kind == PhaseKind.SCAN:
+        if chunks > 1:
+            return _spmd_scan_chunked(
+                backend, src, op, algorithm=ph.algorithm,
+                inclusive=ph.inclusive, chunks=chunks,
+            )
+        if ph.inclusive:
+            return dist_scan(src, op, name, algorithm=ph.algorithm)
+        return dist_exscan(src, op, name, algorithm=ph.algorithm)
+    if ph.kind == PhaseKind.TOTAL:
+        return allreduce_schedule(backend, src, op, algorithm=ph.algorithm)
+    if ph.kind == PhaseKind.REDUCE:
+        return reduce_schedule(
+            backend, src, op, root=ph.root, algorithm=ph.algorithm
+        )
+    if ph.kind == PhaseKind.BARRIER:
+        # same token-threading rationale as the sim interpreter
+        return allreduce_schedule(backend, src, MAX, algorithm=ph.algorithm)
+    raise ValueError(f"unknown phase kind {ph.kind!r}")  # pragma: no cover
+
+
 def lower_spmd(
     plan: CollectivePlan,
     axis_names: Sequence[str],
@@ -1122,48 +1160,12 @@ def lower_spmd(
             if ph.kind == PhaseKind.IDENTITY:
                 regs[ph.dst] = op.identity_like(regs[ph.src[0]])
                 continue
-            src = regs[ph.src[0]]
-            name = names_l[ph.level]
-            backend = alg.SpmdBackend(name, plan.logical_sizes[ph.level])
+            out = spmd_phase(ph, regs[ph.src[0]], op, names_l[ph.level],
+                             plan.logical_sizes[ph.level], chunks)
             if ph.kind == PhaseKind.FUSED_SCAN_TOTAL:
-                if chunks > 1:
-                    y, t = _chunked_scan_total(
-                        backend, src, op, inclusive=ph.inclusive,
-                        chunks=chunks, min_ndim=1 + compat.rank_dims(name),
-                    )
-                else:
-                    y, t = alg.scan_total_schedule(
-                        backend, src, op, inclusive=ph.inclusive
-                    )
-                regs[ph.dst] = y
-                regs[ph.dst2] = t
-                continue
-            if ph.kind == PhaseKind.SCAN:
-                if chunks > 1:
-                    out = _spmd_scan_chunked(
-                        backend, src, op, algorithm=ph.algorithm,
-                        inclusive=ph.inclusive, chunks=chunks,
-                    )
-                elif ph.inclusive:
-                    out = dist_scan(src, op, name, algorithm=ph.algorithm)
-                else:
-                    out = dist_exscan(src, op, name, algorithm=ph.algorithm)
-            elif ph.kind == PhaseKind.TOTAL:
-                out = allreduce_schedule(
-                    backend, src, op, algorithm=ph.algorithm
-                )
-            elif ph.kind == PhaseKind.REDUCE:
-                out = reduce_schedule(
-                    backend, src, op, root=ph.root, algorithm=ph.algorithm
-                )
-            elif ph.kind == PhaseKind.BARRIER:
-                # same token-threading rationale as the sim interpreter
-                out = allreduce_schedule(
-                    backend, src, MAX, algorithm=ph.algorithm
-                )
-            else:  # pragma: no cover - exhaustive
-                raise ValueError(f"unknown phase kind {ph.kind!r}")
-            regs[ph.dst] = out
+                regs[ph.dst], regs[ph.dst2] = out
+            else:
+                regs[ph.dst] = out
         return regs[plan.result]
 
     return run

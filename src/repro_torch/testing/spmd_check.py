@@ -13,17 +13,21 @@ reference.
 
 Run the cases of one suite in ``P`` processes joined in one gloo group:
 
-    python -m repro_torch.testing.spmd_check SUITE P WORKDIR
+    python -m repro_torch.testing.spmd_check [--device cpu] SUITE P WORKDIR
 
 (:func:`run_gloo` does this: a ``file://`` store under ``WORKDIR``, no TCP
 port; rank 0 writes every case's result to ``WORKDIR/results.pt`` and the
-run prints ALL-OK.)
+run prints ALL-OK.) Without ``--device cpu`` every rank runs on the card,
+rank ``r`` on ``cuda:(r % device_count)``, and the ``procs`` suite's
+``backend="pallas"`` cases launch K2's peers path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -158,6 +162,36 @@ PHASE_FORMS = (("SCAN", True), ("SCAN", False), ("FUSED_SCAN_TOTAL", True),
                ("BARRIER", True))
 
 
+def procs_cases(p: int) -> List[Case]:
+    """The ``procs`` suite: the engine in spmd and driver mode over one flat
+    group, as a planned request over axes ``(1, p)`` (mesh axes ``o`` and
+    ``i``), with ``backend="pallas"`` (K2, one launch a comm phase) and the
+    default backend (the spmd rounds): ALLREDUCE over sum, max and min on
+    int32 and float32, SCAN and EXSCAN over the same with the default
+    backend and over sum with K2 (a scan over max or min is outside K2's
+    envelope, ``op_flags``, as in the reference), and BARRIER. Under a process
+    group also :func:`workspace_trace` and :func:`staged_permute`."""
+    shape, names = (1, p), ("o", "i")
+    cases = [_case("procs:workspace", "workspace", (p,), ("i",)),
+             _case("procs:staged", "staged", (p,), ("i",))]
+    for mode in ("spmd", "driver"):
+        for backend in ("pallas", ""):
+            tag = backend or "default"
+            for coll in ("SCAN", "EXSCAN", "ALLREDUCE"):
+                for op, dt in EXACT:
+                    if backend and coll != "ALLREDUCE" and op != "sum":
+                        continue
+                    cases.append(_case(
+                        f"procs:{mode}:{tag}:{coll}:{op}:{dt}", "engine",
+                        shape, names, mode=mode, coll=coll, op=op, dtype=dt,
+                        planned=True, backend=backend))
+            cases.append(_case(f"procs:{mode}:{tag}:BARRIER", "engine", shape,
+                               names, mode=mode, coll="BARRIER", op="sum",
+                               dtype="float32", planned=True,
+                               backend=backend))
+    return cases
+
+
 def collective_cases(p: int) -> List[Case]:
     """The ``collective`` suite: K2's plain version per phase form and
     operator (an int32 and a float32 leaf in one payload), and the per-rank
@@ -197,6 +231,7 @@ SUITES: Dict[str, Callable[[int], List[Case]]] = {
     "spmd": spmd_cases,
     "wide": wide_cases,
     "collective": collective_cases,
+    "procs": procs_cases,
 }
 
 
@@ -334,10 +369,12 @@ def run_case(case: Case, make_mesh: Callable[[Tuple[int, ...], Tuple[str, ...]],
     elif k == "engine":
         eng = OffloadEngine(device=mesh.device)
         planned = bool(prm.get("planned"))
+        pinned = prm.get("backend") == "pallas"
+        kw = dict(backend="pallas", chunks=1) if pinned else {}
         desc = eng.make_descriptor(
             prm["coll"], p=case.p, axes=case.shape if planned else None,
             payload_bytes=4 * N, op=op,
-            data_type=_wire_dtype(prm["dtype"]),
+            data_type=_wire_dtype(prm["dtype"]), **kw,
         )
         names = case.names
         spec = tuple(names[i] for i in desc.split) if planned else names
@@ -348,6 +385,14 @@ def run_case(case: Case, make_mesh: Callable[[Tuple[int, ...], Tuple[str, ...]],
             out = per_rank(lambda t: eng.offload(desc, t, axis_name=axis), spec)
         if eng.telemetry.dispatches != 1:
             raise AssertionError("one offload, one dispatch")
+        if pinned and (eng.telemetry.backend_fallbacks
+                       or not all(s.algo.startswith("pallas:")
+                                  for s in eng._cache.values())):
+            raise AssertionError("backend='pallas' fell back to the default")
+    elif k == "workspace":
+        out = per_rank(lambda _: workspace_trace(mesh))
+    elif k == "staged":
+        out = per_rank(lambda _: staged_permute(mesh))
     elif k == "phase":
         kind = planner.PhaseKind[prm["phase"]]
         out = per_rank(lambda t: spmd_collective.comm_phase_spmd_plain(
@@ -362,6 +407,108 @@ def run_case(case: Case, make_mesh: Callable[[Tuple[int, ...], Tuple[str, ...]],
     return tuple(a.cpu() for a in tree_leaves(out))
 
 
+class FakeIpc:
+    """K2's IPC calls without a GPU: a block is a number that names its rank
+    and allocation, its handle says the same, and every call is logged."""
+
+    def __init__(self, rank: int) -> None:
+        self.rank, self.made, self.mapped, self.freed = rank, 0, set(), []
+
+    def alloc(self, nbytes: int):
+        self.made += 1
+        return self.address(self.rank, self.made), \
+            f"{self.rank}:{self.made}:{nbytes}".encode()
+
+    @staticmethod
+    def address(rank: int, made: int) -> int:
+        return ((rank + 1) << 40) | (made << 32)
+
+    def open(self, handle: bytes) -> int:
+        rank, made, _ = (int(v) for v in handle.decode().split(":"))
+        ptr = self.address(rank, made) | 0x800  # another process's mapping
+        self.mapped.add(ptr)
+        return ptr
+
+    def close(self, ptr: int) -> None:
+        self.mapped.remove(ptr)
+
+    def free(self, ptr: int) -> None:
+        self.freed.append(ptr)
+
+
+#: (flag words, receive bytes) of the calls :func:`workspace_trace` makes
+WORKSPACE_CALLS = ((10, 1000), (10, 1000), (5, 100), (10, 5000), (300, 5000))
+
+
+def workspace_trace(mesh):
+    """K2's peer workspace over ``mesh``'s process group with a
+    :class:`FakeIpc`: registrations after each of :data:`WORKSPACE_CALLS`,
+    the handles (rank, allocation) in the table after each, the tables'
+    offsets from every rank's block, the blocks left mapped or unfreed
+    after a release, and whether a group that disagrees raised (int64
+    tensors)."""
+    import torch
+
+    from repro_torch.kernels.spmd_collective import _PeerWorkspace
+
+    rank, p = mesh.ranks.group_rank, mesh.size
+    ipc = FakeIpc(rank)
+    ws = _PeerWorkspace(mesh.group, mesh.device, p, rank, ipc=ipc)
+    regs, handles, offsets = [], [], []
+    for flags, recv in WORKSPACE_CALLS:
+        ws.reserve(flags, recv)
+        regs.append(ws.registrations)
+        handles.append([[int(v) for v in h.decode().split(":")[:2]]
+                        for h in ws.handles])
+        base = torch.tensor(ws.bases, dtype=torch.int64)
+        offsets.append((ws.tables.cpu() - base).tolist()
+                       + [[ws.flag_words, ws.recv_bytes] + [0] * (p - 2)])
+    ws.release()
+    left = [len(ipc.mapped), ipc.made - len(ipc.freed)]
+    bad = _PeerWorkspace(mesh.group, mesh.device, p, rank, ipc=FakeIpc(rank))
+    try:
+        bad.reserve(10, 1000 * (rank + 1))  # the ranks disagree
+        raised = 0
+    except RuntimeError:
+        raised = 1
+    return (torch.tensor(regs), torch.tensor(handles), torch.tensor(offsets),
+            torch.tensor(left + [raised]))
+
+
+def staged_permute(mesh):
+    """A cyclic ``ppermute`` of int32, float32 and bfloat16 leaves over the
+    process group with the host staging forced on (as for CUDA leaves under
+    gloo), beside the same permute unstaged; and how many host copies the
+    staged one made (int64 tensors and the leaves)."""
+    import torch
+
+    ranks = mesh.ranks
+    p, me = mesh.size, ranks.group_rank
+    leaves = (torch.arange(6, dtype=torch.int32) + 100 * me,
+              torch.linspace(-1, 1, 6) * (me + 1),
+              (torch.arange(6, dtype=torch.float32) / 3 + me).bfloat16()[::2])
+    perm = [(i, (i + 1) % p) for i in range(p)]
+    plain = ranks.ppermute(leaves, "i", perm)
+    copies = []
+    cpu = torch.Tensor.cpu
+
+    def counted(t, *a, **kw):
+        copies.append(t.dtype)
+        return cpu(t, *a, **kw)
+
+    ranks.host_staged = lambda leaves: True  # this object only
+    torch.Tensor.cpu = counted
+    try:
+        staged = ranks.ppermute(leaves, "i", perm)
+    finally:
+        torch.Tensor.cpu = cpu
+        del ranks.host_staged
+    same = [int(torch.equal(a, b) and a.dtype == b.dtype == c.dtype
+                and a.device == c.device)
+            for a, b, c in zip(staged, plain, leaves)]
+    return (*staged, torch.tensor(same + [len(copies)]))
+
+
 def _wire_dtype(name: str):
     from repro_torch.core.packet import WireDType
 
@@ -373,33 +520,56 @@ def _wire_dtype(name: str):
 # ---------------------------------------------------------------------------
 
 
+def rank_device(rank: int, device: str):
+    """Rank ``rank``'s device: the CPU, or on the card ``cuda:(rank %
+    device_count)`` (every rank on ``cuda:0`` with one GPU, one rank a GPU
+    where there are enough)."""
+    import torch
+
+    if device == "cpu":
+        return torch.device("cpu")
+    if device != "cuda":
+        raise ValueError(f"device must be 'cpu' or 'cuda'; got {device!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' needs a GPU; pass --device cpu")
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
 def gloo_worker(p: int, rank: int, workdir: Path,
-                body: Callable[[Callable], Dict[str, Any]]) -> None:
+                body: Callable[[Callable], Dict[str, Any]], *,
+                device: str = "cpu") -> None:
     """One process of a :func:`spawn_gloo` run: join the gloo group through
     the ``file://`` store under ``workdir``, call ``body(make_mesh)``
-    (``make_mesh(shape, names)`` builds a mesh over the whole group), and
-    save its results from rank 0."""
+    (``make_mesh(shape, names)`` builds a mesh over the whole group on
+    :func:`rank_device`), and save its results from rank 0."""
     import torch
     import torch.distributed as dist
 
     from repro_torch import compat
+    from repro_torch.kernels import spmd_collective
 
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     torch.set_num_threads(1)
+    dev = rank_device(rank, device)
     dist.init_process_group(
         "gloo", init_method=f"file://{workdir / 'store'}", world_size=p,
         rank=rank,
     )
     try:
         results = body(lambda shape, names: compat.Mesh(
-            shape, names, device="cpu", group=dist.group.WORLD))
+            shape, names, device=dev, group=dist.group.WORLD))
         if rank == 0:
             torch.save(results, workdir / "results.pt")
         dist.barrier()
     finally:
+        spmd_collective.release_peer_workspaces()
         dist.destroy_process_group()
 
 
-def _worker(suite: str, p: int, rank: int, workdir: Path) -> None:
+def _worker(suite: str, p: int, rank: int, workdir: Path,
+            device: str = "cpu") -> None:
     def body(make_mesh):
         results: Dict[str, Any] = {}
         for case in SUITES[suite](p):
@@ -409,16 +579,18 @@ def _worker(suite: str, p: int, rank: int, workdir: Path) -> None:
                 results[case.name] = f"{type(exc).__name__}: {exc}"
         return results
 
-    gloo_worker(p, rank, workdir, body)
+    gloo_worker(p, rank, workdir, body, device=device)
 
 
 def run_gloo(suite: str, p: int, workdir: "str | Path", *,
-             timeout: float = 120.0) -> Dict[str, Any]:
+             timeout: float = 120.0, device: str = "cpu") -> Dict[str, Any]:
     """Run every case of ``suite`` in ``p`` processes joined in one gloo
-    group (a ``file://`` store under ``workdir``); returns rank 0's results
-    (case name -> tuple of CPU tensors, or the error text). Every process is
-    killed if the run outlasts ``timeout`` seconds, which raises."""
-    return spawn_gloo("repro_torch.testing.spmd_check", [suite], p, workdir,
+    group (a ``file://`` store under ``workdir``), each rank on
+    :func:`rank_device`; returns rank 0's results (case name -> tuple of CPU
+    tensors, or the error text). Every process is killed if the run
+    outlasts ``timeout`` seconds, which raises."""
+    return spawn_gloo("repro_torch.testing.spmd_check",
+                      ["--device", device, suite], p, workdir,
                       timeout=timeout)
 
 
@@ -430,7 +602,7 @@ def spawn_gloo(module: str, args: List[str], p: int, workdir: "str | Path",
     import torch
 
     suite = " ".join(args)
-    workdir = Path(workdir)
+    workdir = Path(workdir).resolve()  # a file:// URL needs an absolute path
     workdir.mkdir(parents=True, exist_ok=True)
     src = str(Path(__file__).resolve().parents[2])
     env = dict(os.environ)
@@ -454,11 +626,15 @@ def spawn_gloo(module: str, args: List[str], p: int, workdir: "str | Path",
             logs.append(out)
     except subprocess.TimeoutExpired:
         for proc in procs:
-            proc.kill()
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGUSR1)  # gloo_worker: dump stacks
+        time.sleep(1.0)
         for proc in procs:
-            proc.communicate()
+            proc.kill()
+        tails = [proc.communicate()[0][-2000:] for proc in procs[len(logs):]]
         raise TimeoutError(
-            f"gloo run of {module} {suite} at p={p} outlasted {timeout} s"
+            f"gloo run of {module} {suite} at p={p} outlasted {timeout} s; "
+            "the unfinished ranks' output:\n" + "\n".join(tails)
         ) from None
     bad = [(r, proc.returncode) for r, proc in enumerate(procs)
            if proc.returncode != 0]
@@ -470,11 +646,14 @@ def spawn_gloo(module: str, args: List[str], p: int, workdir: "str | Path",
 
 
 def main(argv: List[str]) -> int:
+    device = "cuda"
+    if argv[:1] == ["--device"]:
+        device, argv = argv[1], argv[2:]
     suite, p, workdir = argv[0], int(argv[1]), Path(argv[2])
     if len(argv) > 3:
-        _worker(suite, p, int(argv[3]), workdir)
+        _worker(suite, p, int(argv[3]), workdir, device)
         return 0
-    results = run_gloo(suite, p, workdir)
+    results = run_gloo(suite, p, workdir, device=device)
     errors = {k: v for k, v in results.items() if isinstance(v, str)}
     for name, err in errors.items():
         print(f"spmd_check,{suite},{name},p,{p},ERROR,{err}")
