@@ -2361,11 +2361,20 @@ def phase_profile(torch, device):
         phases = [s for s in spans if s.cat == "phase"]
         rounds = [s for s in spans if s.cat == "round"]
         want_rounds = alg.phase_round_count("SCAN", p, inclusive=True)
-        if (len(compiles) != 1 or compiles[0].parent_id != root.span_id
+        prepares = [s for s in spans if s.name == "engine.prepare"]
+        if (len(compiles) != 1 or len(prepares) != 1
+                or prepares[0].parent_id != root.span_id
+                or compiles[0].parent_id != prepares[0].span_id
                 or root.args.get("cache") != "miss"):
             raise AssertionError("no engine.compile under the missed dispatch")
-        if len(phases) != 1 or phases[0].parent_id != root.span_id:
+        schedules = [s for s in spans if s.name == "engine.schedule"]
+        if (len(schedules) != 1 or schedules[0].parent_id != root.span_id
+                or len(phases) != 1
+                or phases[0].parent_id != schedules[0].span_id):
             raise AssertionError(f"phase spans {[s.name for s in phases]}")
+        k1_spans = [s.name for s in spans if s.name.startswith("k1.")]
+        if sorted(k1_spans) != ["k1.launch", "k1.stage"]:
+            raise AssertionError(f"K1 spans {k1_spans}")
         if (len(rounds) != want_rounds or phases[0].args.get("rounds")
                 != want_rounds or any(r.parent_id != phases[0].span_id
                                       for r in rounds)):

@@ -20,7 +20,9 @@ Three layers, as for every kernel of the port:
   otherwise, the PR 13 kernel with the column in shared memory or global
   scratch) or raises (a build or launch failure raises too).
   :data:`launches` counts the launches the C entry reports, and
-  :data:`path_launches` the same by path.
+  :data:`path_launches` the same by path. A launch's staging (checks,
+  ``(p, M)`` rows, outputs) runs in the span ``k1.stage``, the C call in
+  ``k1.launch`` (:mod:`repro_torch.obs.tracing`).
 * :func:`lower_fused` — the plan lowering the registry's fused backend
   (registered under the wire name ``"pallas"``) returns, the counterpart of
   ``lower_pallas``: without ``axis_names`` over stacked leaves with one K1
@@ -480,27 +482,29 @@ def _launch(
     inclusive: bool, path: Optional[str],
 ) -> Tuple[List[torch.Tensor], Optional[List[torch.Tensor]]]:
     global launches
-    op_code, flat, ys, ts, back = _stage(kind, p, op, leaves, "fused kernel")
-    dtype, device = flat[0].dtype, flat[0].device
-    M = flat[0].shape[1]
-    plan = plan_launch(kind, p, M, dtype, len(flat),
-                       aligned_rows(flat + ys + (ts or []), M), path=path)
+    with obs_tracing.span("k1.stage", "kernel"):
+        op_code, flat, ys, ts, back = _stage(kind, p, op, leaves, "fused kernel")
+        dtype, device = flat[0].dtype, flat[0].device
+        M = flat[0].shape[1]
+        plan = plan_launch(kind, p, M, dtype, len(flat),
+                           aligned_rows(flat + ys + (ts or []), M), path=path)
     if M > 0:
-        lib = _library()
-        scratch = None
-        if plan.scratch:
-            scratch = torch.empty(plan.scratch, dtype=dtype, device=device)
-        made = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = lib.k1_fused_comm(
-                _PATH_CODES[plan.path], _KIND_CODES[kind], op_code,
-                _DTYPE_CODES[dtype], int(inclusive), p, M, plan.p_max,
-                plan.vec, plan.block, plan.smem_bytes,
-                *_pointers(flat), *_pointers(ys), *_pointers(ts),
-                None if scratch is None else scratch.data_ptr(),
-                stream, ctypes.byref(made),
-            )
+        with obs_tracing.span("k1.launch", "kernel"):
+            lib = _library()
+            scratch = None
+            if plan.scratch:
+                scratch = torch.empty(plan.scratch, dtype=dtype, device=device)
+            made = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                stream = torch.cuda.current_stream(device).cuda_stream
+                rc = lib.k1_fused_comm(
+                    _PATH_CODES[plan.path], _KIND_CODES[kind], op_code,
+                    _DTYPE_CODES[dtype], int(inclusive), p, M, plan.p_max,
+                    plan.vec, plan.block, plan.smem_bytes,
+                    *_pointers(flat), *_pointers(ys), *_pointers(ts),
+                    None if scratch is None else scratch.data_ptr(),
+                    stream, ctypes.byref(made),
+                )
         launches += made.value
         path_launches[plan.path] += made.value
         if rc != 0:
@@ -645,7 +649,9 @@ def lower_fused(
     :func:`supports_rank_plan`). Both give the op-per-round lowerings'
     values (same arithmetic, operand order and zero fills). Raises
     ``ValueError`` for plans outside :func:`supports_rank_plan`; callers wanting a soft fallback go through the
-    lowering registry (:mod:`repro_torch.offload.backends`).
+    lowering registry (:mod:`repro_torch.offload.backends`). Over stacked
+    leaves on a CUDA ``device`` the lowering builds or loads K1's library,
+    so that the schedule's first call does not.
 
     ``traced=True`` (stacked leaves only) records, under a collecting
     tracer, one ``phase`` span for each K1 launch and
@@ -663,6 +669,9 @@ def lower_fused(
     if axis_names is not None:
         return _lower_fused_spmd(plan, op, tuple(axis_names))
     device = resolve_device(device)
+    if device.type == "cuda":
+        # build or load K1 with the schedule, not inside its first call
+        _library()
     logical = plan.logical_sizes
     k = len(logical)
     p_total = plan.p

@@ -33,7 +33,9 @@ backward on the card (the plain version both ways on the CPU).
 raises ``NotImplementedError`` for a ``max`` or ``mul`` scan of a tensor
 that requires grad: those have no backward here.
 
-:data:`launches` counts every kernel launch (one a call);
+Every call of :func:`scan_rows` runs in the span ``k3.call``
+(:mod:`repro_torch.obs.tracing`). :data:`launches` counts every kernel
+launch (one a call);
 :data:`reverse_launches` counts the back-to-front ones among them, which on
 the training path are the Function's backward; :data:`path_launches` counts
 them by path.
@@ -55,6 +57,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ref_prefix_scan
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.roofline.op_cost import charged
 
 #: kernel launches since import (the main path's proof that it ran K3)
@@ -315,8 +318,9 @@ def scan_rows(
     on_card = x.is_cuda
     if not on_card and x.device.type not in ("cpu", "meta"):
         raise ValueError(f"no scan kernel for device {x.device}")
-    with charged("k3", rows=x.shape[0], length=x.shape[1], dtype=x.dtype,
-                 reverse=reverse):
+    with obs_tracing.span("k3.call", "kernel"), charged(
+            "k3", rows=x.shape[0], length=x.shape[1], dtype=x.dtype,
+            reverse=reverse):
         if on_card:
             return _launch(x, op, exclusive, reverse)
         if reverse:

@@ -22,6 +22,10 @@ Two gradient-collective paths exist for training, as in the reference:
     ``compat.psum`` / ``pmax`` chains in the identical logical order, a
     bitwise reference for the engine path.
 
+A training step runs in the span ``step.train``, its forward, backward and
+AdamW in ``step.forward``, ``step.backward`` and ``step.optimizer``; a
+prefill in ``step.prefill`` (:mod:`repro_torch.obs.tracing`).
+
 A step turns ``requires_grad`` on for the module's parameters (serving
 leaves them off and runs under ``torch.inference_mode()``) and returns the
 module, updated in place by :func:`repro_torch.optim.adamw.adamw_update`.
@@ -40,6 +44,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.packet import CollType
 from repro_torch.core.trees import tree_map
 from repro_torch.models import ModelApi, input_specs
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.offload import planner
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.sharding.rules import batch_specs, cache_specs, param_specs, zero1_specs
@@ -72,8 +77,10 @@ def loss_and_grads(api: ModelApi, model: torch.nn.Module,
     trainable(model)
     names, params = zip(*model.named_parameters())
     with torch.enable_grad():
-        loss, metrics = api.loss(model, batch)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with obs_tracing.span("step.forward", "step"):
+            loss, metrics = api.loss(model, batch)
+        with obs_tracing.span("step.backward", "step"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
              for n, p, g in zip(names, params, grads)}
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
@@ -115,11 +122,14 @@ def build_train_step(
     cfg = api.cfg
 
     def train_step(model, opt_state, batch):
-        batch = batch_to(batch, module_device(model))
-        with use_topology(topo):
-            loss, metrics, grads = loss_and_grads(api, model, batch)
-        model, new_opt, stats = adamw_update(grads, opt_state, model, opt_cfg)
-        return model, new_opt, {"loss": loss, **metrics, **stats}
+        with obs_tracing.span("step.train", "step"):
+            batch = batch_to(batch, module_device(model))
+            with use_topology(topo):
+                loss, metrics, grads = loss_and_grads(api, model, batch)
+            with obs_tracing.span("step.optimizer", "step"):
+                model, new_opt, stats = adamw_update(
+                    grads, opt_state, model, opt_cfg)
+            return model, new_opt, {"loss": loss, **metrics, **stats}
 
     pshapes = api.param_shapes()
     oshapes = opt_shapes(pshapes)
@@ -314,14 +324,17 @@ def build_dp_train_step(
     def update(model, opt_state, gsum, msum, seen):
         grads = {n: (a[0] / dp).to(a.dtype) for n, a in gsum.items()}
         mstack = {n: a[0] / dp for n, a in msum.items()}
-        model, new_opt, stats = adamw_update(grads, opt_state, model, opt_cfg)
+        with obs_tracing.span("step.optimizer", "step"):
+            model, new_opt, stats = adamw_update(
+                grads, opt_state, model, opt_cfg)
         return model, new_opt, {**mstack, **stats, "examples_seen": seen[0]}
 
     def step_fn(model, opt_state, batch):
-        batch = batch_to(batch, mesh.device)
-        stack = local(model, batch)
-        gsum, msum, seen = collectives(stack)
-        return update(model, opt_state, gsum, msum, seen)
+        with obs_tracing.span("step.train", "step"):
+            batch = batch_to(batch, mesh.device)
+            stack = local(model, batch)
+            gsum, msum, seen = collectives(stack)
+            return update(model, opt_state, gsum, msum, seen)
 
     return step_fn, (pshapes, oshapes, bshapes), (pspec, ospec, bspec)
 
@@ -336,7 +349,8 @@ def build_prefill_step(api: ModelApi, topo: Topology, shape: ShapeConfig):
     bspec = batch_specs(bshapes, topo)
 
     def prefill(model, batch):
-        with torch.inference_mode(), use_topology(topo):
+        with obs_tracing.span("step.prefill", "step"), \
+                torch.inference_mode(), use_topology(topo):
             return api.prefill(model, batch_to(batch, module_device(model)))
 
     return prefill, (pshapes, bshapes), (pspec, bspec)

@@ -1,12 +1,23 @@
 """Unified observability (PyTorch port of ``repro.obs``): spans,
 Chrome/Perfetto export, metrics registry, flight recorder.
 
-* :mod:`repro_torch.obs.tracing` — in-process spans with parent links
-  covering engine dispatch -> plan phase -> comm round; a no-op tracer is
-  installed by default so the instrumented hot paths are zero-cost until
+* :mod:`repro_torch.obs.tracing` — in-process spans at the port's layer
+  boundaries: engine dispatch (``engine.offload`` ⊃ ``engine.prepare``
+  (⊃ ``engine.compile`` on a miss), ``engine.drain``, ``engine.schedule``,
+  ``engine.wait``, ``engine.record``) -> K1's ``k1.stage`` / ``k1.launch``
+  -> plan phase -> comm round, the model step (``step.train`` ⊃
+  ``step.forward``, ``step.backward``, ``step.optimizer``;
+  ``step.prefill``) and K3's ``k3.call``. Each span has three sinks: a
+  process-wide ``(count, total ns)`` counter, always, except while a
+  ``torch.profiler`` session records (0.3-0.75 µs a site on an H100
+  machine's host, ``PERF.md``), published as
+  ``repro_span_total`` / ``repro_span_seconds_total``; a
+  ``record_function`` range while a profiler records, on the profiler's
+  clock; and the collecting tracer that
   :func:`~repro_torch.obs.tracing.install_tracer` (or the
-  :func:`~repro_torch.obs.tracing.tracing` context manager) enables
-  collection.
+  :func:`~repro_torch.obs.tracing.tracing` context manager) installs,
+  with parent links. Only the collecting tracer changes what runs (the
+  traced lowering).
 * :mod:`repro_torch.obs.export` — spans -> Chrome trace JSON
   (Perfetto-openable) and the host+device merge with ``torch.profiler``
   traces.
@@ -69,6 +80,7 @@ from repro_torch.obs.tracing import (
     install_tracer,
     now_us,
     set_tracer,
+    span_totals,
 )
 
 __all__ = [
@@ -104,6 +116,7 @@ __all__ = [
     "set_recorder",
     "set_registry",
     "set_tracer",
+    "span_totals",
     "spans_to_chrome",
     "start_http_server",
     "write_trace",

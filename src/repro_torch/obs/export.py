@@ -14,8 +14,9 @@ beyond plain export:
     that :mod:`repro_torch.offload.profiling` parses into the host span
     timeline — one trace showing the engine/phase/round spans on the host
     track and the kernels on a device track. The two traces run on
-    different clocks (host spans use ``perf_counter`` µs, the profiler its
-    own epoch); alignment pins the profiler's ``record_function``
+    different clocks (collected spans use ``perf_counter`` µs, the profiler
+    its own epoch; the spans a profiler session records itself, as ranges,
+    are on its clock already); alignment pins the profiler's ``record_function``
     annotation to the host-side span of the same name, which
     :func:`repro_torch.offload.profiling.profile_offload` emits whenever a
     tracer is installed.
@@ -169,6 +170,11 @@ def merge_device_trace(
     Returns a new trace dict; inputs are not mutated. Device events keep
     their names, move to ``pid`` :data:`DEVICE_PID`, and gain
     ``args.source = "torch.profiler"``.
+
+    Spans opened with :func:`repro_torch.obs.tracing.span` while that
+    profiler recorded are already in its trace as ``record_function``
+    ranges, on its clock: they need no alignment, only the collecting
+    tracer's ``perf_counter`` spans do.
 
     A missing or unparseable device trace **degrades, never raises**: the
     profiler writing a truncated trace must not take down the tooling that

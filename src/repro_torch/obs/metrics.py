@@ -21,7 +21,11 @@ Key series:
     — the per-round host-constant attribution from traced sim dispatches:
     round indices bucket as 0,1,2,3,"4-7","8-15",... so the label set
     stays bounded while still separating early rounds (where the fused
-    schedule's extra payload lives) from the tail.
+    schedule's extra payload lives) from the tail;
+  * ``repro_span_total{span=...}`` / ``repro_span_seconds_total{span=...}``
+    — :mod:`repro_torch.obs.tracing`'s span totals outside profiler
+    sessions, kept there and read at every scrape of the process registry
+    (:func:`add_process_series`).
 
 Everything is thread-safe (one lock per registry) and dependency-free.
 :func:`render_prometheus` emits the text exposition format
@@ -32,14 +36,16 @@ trivial HTTP handler.
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 __all__ = [
+    "CallbackCounter",
     "Counter",
     "Gauge",
     "Histogram",
     "MetricsRegistry",
     "ROUND_LATENCY_BUCKETS_US",
+    "add_process_series",
     "get_registry",
     "render_prometheus",
     "reset_registry",
@@ -135,6 +141,22 @@ class Counter(_Metric):
                 f"{self.name}{_fmt_labels(self.labelnames, key)} {_num(v)}"
             )
         return lines
+
+
+class CallbackCounter(_Metric):
+    """A counter whose totals are kept elsewhere and read at every scrape:
+    ``fn() -> {label values: total}``."""
+
+    kind = "counter"
+
+    def __init__(self, name, help="", labelnames=(), *, fn: Callable[[], Dict]):
+        super().__init__(name, help, labelnames)
+        self._fn = fn
+
+    def collect(self) -> Dict[LabelValues, float]:
+        return {tuple(map(str, k)): float(v) for k, v in self._fn().items()}
+
+    render = Counter.render
 
 
 class Gauge(_Metric):
@@ -296,6 +318,13 @@ class MetricsRegistry:
             Histogram, name, help, labelnames, buckets=buckets
         )
 
+    def callback_counter(
+        self, name, help, labelnames, fn: Callable[[], Dict],
+    ) -> CallbackCounter:
+        return self._get_or_create(
+            CallbackCounter, name, help, labelnames, fn=fn
+        )
+
     def metrics(self) -> Dict[str, _Metric]:
         with self._lock:
             return dict(self._metrics)
@@ -328,6 +357,16 @@ class MetricsRegistry:
 
 _default = MetricsRegistry()
 _default_lock = threading.Lock()
+#: ``fn(registry)`` calls that add the process-wide series kept outside any
+#: registry (``obs.tracing``'s span totals) to the process registry
+_process_series: List[Callable[[MetricsRegistry], None]] = []
+
+
+def add_process_series(fn: Callable[[MetricsRegistry], None]) -> None:
+    """Have ``fn`` add its series to the process registry now and to every
+    registry :func:`set_registry` installs later."""
+    _process_series.append(fn)
+    fn(_default)
 
 
 def get_registry() -> MetricsRegistry:
@@ -341,6 +380,8 @@ def set_registry(registry: MetricsRegistry) -> MetricsRegistry:
     with _default_lock:
         prev = _default
         _default = registry
+    for fn in _process_series:
+        fn(registry)
     return prev
 
 

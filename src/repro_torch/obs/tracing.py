@@ -1,36 +1,63 @@
-"""In-process span tracer: per-round latency attribution for the offload stack
-(the port's copy of ``repro.obs.tracing``).
+"""In-process spans: where the offload stack and the model step spend the
+host's time (the port's copy of ``repro.obs.tracing``, extended).
 
 The paper's core evidence is a *measurement*: an on-NIC timer attributing
 scan latency to the network device versus the host. The software stack has
 many more places for the time to hide — broker queue, coalescing window,
 schedule-cache lookup, lowering, the per-round host constant of the sim
 interpreter, the kernel launch — so this module provides lightweight
-host-side spans with explicit parent links:
+host-side spans with explicit parent links. The span tree:
 
     service.submit  ->  broker.queue_wait  ->  broker.dispatch_group
-      ->  engine.offload (cache hit/miss, engine.compile on miss)
-        ->  plan.phase:<KIND>:L<level>   (one per PlanPhase)
-          ->  plan.round:<i>             (one per communication round)
+      ->  engine.offload
+            engine.prepare   decode, plan memo, backend, cache key, lookup,
+                             payload validation
+              ->  engine.compile             (a cache miss only)
+            engine.drain     the device sync before the schedule
+            engine.schedule  the schedule: phase loop, staging, launches
+              ->  k1.stage, k1.launch        (one pair a K1 launch)
+              ->  plan.phase:<KIND>:L<level> (traced lowering only)
+                ->  plan.round:<i>
+            engine.wait      the device sync after it
+            engine.record    telemetry, metrics, flight recorder
+
+    step.train  ->  step.forward, step.backward, step.optimizer
+    step.prefill
+    k3.call          one K3 segment-scan call, wherever it runs
 
 Span categories (``cat``): ``service``, ``broker``, ``engine``, ``phase``,
-``round``, ``profile``, and — in link-probe mode
-(``Tracer(link_probe=True)``, see :mod:`repro_torch.obs.health`) —
-``link``, one span per (src, dst) message of a round. Timestamps are ``time.perf_counter()`` microseconds, one
-monotonic clock for the whole process; :mod:`repro_torch.obs.export`
-serializes them to Chrome/Perfetto trace JSON and can merge the device-side
-events a ``torch.profiler`` trace records for the same dispatch.
+``round``, ``kernel`` (``k1.*``, ``k3.call``), ``step``, ``profile``, and —
+in link-probe mode (``Tracer(link_probe=True)``, see
+:mod:`repro_torch.obs.health`) — ``link``, one span per (src, dst) message
+of a round.
 
-**Tracing is off by default and zero-cost when off.** The module-level
-tracer is a :class:`NoopTracer` whose ``span()`` returns one shared no-op
-context manager — instrumented code paths pay a single attribute check.
-Nothing about the dispatched computation changes either way: spans only
-wrap *host-side* work. Driver and spmd dispatches get spans around the
-dispatch only; the traced sim lowerings
+**Three sinks.** Every span opened with :func:`span` goes to:
+
+* **a counter, always** (except while a ``torch.profiler`` session
+  records): a process-wide ``(count, total ns)`` pair a span name, updated
+  when the span closes from ``time.perf_counter_ns``
+  (:func:`span_totals`; published on every scrape of the process registry
+  as ``repro_span_total{span=...}`` and ``repro_span_seconds_total``). A
+  profiler slows the host, so its windows stay out of the totals. Each
+  thread keeps its own counters, so a span takes no lock. Cost, measured
+  on the host of an H100 machine: 0.3-0.75 µs a site above a bare ``with``
+  block (``PERF.md``), 8 sites a scan dispatch;
+* **a profiler range, while a ``torch.profiler`` session records**: a
+  ``record_function`` range of the span's name, gated on the module flag
+  ``torch.autograd.profiler._is_profiler_enabled``, so the span sits in the
+  same trace as the kernels, on the profiler's clock (12-14 µs a range on
+  the same host);
+* **the installed collecting** :class:`Tracer`, with parent links, as
+  before. Timestamps are ``time.perf_counter()`` microseconds;
+  :mod:`repro_torch.obs.export` serializes them to Chrome/Perfetto trace
+  JSON and merges a ``torch.profiler`` trace's device events.
+
+Only a collecting tracer changes what runs: the traced sim lowerings
 (:func:`repro_torch.offload.planner.lower_sim` and
 :func:`repro_torch.kernels.fused_collective.lower_fused` with
-``traced=True``) also emit phase- and round-level spans, synchronizing the
-device at each boundary so a span's length is the work inside it.
+``traced=True``) emit phase- and round-level spans, synchronizing the device
+at each boundary so a span's length is the work inside it. The counter and
+profiler sinks wrap host-side work only and run the untraced schedule.
 
 Usage::
 
@@ -39,6 +66,7 @@ Usage::
     with tracing.tracing() as tracer:        # installs + restores
         engine.offload(desc, x)              # sim dispatch -> round spans
     spans = tracer.spans()
+    tracing.span_totals()["engine.offload"]  # (count, ns) outside profilers
 """
 
 from __future__ import annotations
@@ -50,6 +78,10 @@ import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+from torch.autograd import profiler as _autograd_profiler
+
+from repro_torch.obs import metrics as obs_metrics
+
 __all__ = [
     "NoopTracer",
     "Span",
@@ -60,6 +92,8 @@ __all__ = [
     "install_tracer",
     "now_us",
     "set_tracer",
+    "span",
+    "span_totals",
     "tracing",
 ]
 
@@ -311,6 +345,141 @@ def tracing(tracer: Optional[Tracer] = None) -> Iterator[Tracer]:
         yield tracer
     finally:
         set_tracer(prev)
+
+
+# -- spans on all three sinks -------------------------------------------------
+
+_perf_ns = time.perf_counter_ns
+_local = threading.local()
+#: every thread's ``{name: _Site}``, kept after the thread ends
+_thread_sites: List[Dict[str, "_Site"]] = []
+_thread_sites_lock = threading.Lock()
+
+
+class _Site:
+    """One span name's counter on one thread, and the span context of the
+    counter sink: the start times of its open spans on a stack (a name may
+    nest in itself). Only its own thread writes it, so it needs no lock;
+    its handle's ``set`` drops the arguments."""
+
+    __slots__ = ("starts", "count", "ns")
+    span_id = None
+
+    def __init__(self):
+        self.starts: List[int] = []
+        self.count = 0
+        self.ns = 0
+
+    def __enter__(self) -> "_Site":
+        self.starts.append(_perf_ns())
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        ns = _perf_ns() - self.starts.pop()
+        if not _autograd_profiler._is_profiler_enabled:
+            self.count += 1
+            self.ns += ns
+
+    def set(self, **kw: Any) -> None:
+        return None
+
+
+def _site(name: str) -> _Site:
+    """This thread's counter of ``name``, made on first use."""
+    sites = getattr(_local, "sites", None)
+    if sites is None:
+        sites = _local.sites = {}
+        with _thread_sites_lock:
+            _thread_sites.append(sites)
+    site = sites.get(name)
+    if site is None:
+        site = sites[name] = _Site()
+    return site
+
+
+class _SinkSpan:
+    """A span while a collecting tracer is installed or a profiler records:
+    a ``record_function`` range under the profiler, a collected span under
+    the tracer (whose handle it yields), the counter outside profilers."""
+
+    __slots__ = ("site", "name", "cat", "args", "tracer", "t0", "_range",
+                 "_collected")
+    span_id = None
+
+    def __init__(self, site: _Site, name: str, cat: str, tracer: Any,
+                 args: Dict[str, Any]):
+        self.site, self.name, self.cat = site, name, cat
+        self.tracer, self.args = tracer, args
+        self._range = self._collected = None
+
+    def __enter__(self) -> Any:
+        handle = self
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = _autograd_profiler.record_function(self.name)
+            self._range.__enter__()
+        if self.tracer.enabled:
+            self._collected = self.tracer.span(self.name, self.cat, **self.args)
+            handle = self._collected.__enter__()
+        self.t0 = _perf_ns()
+        return handle
+
+    def __exit__(self, *exc: Any) -> None:
+        ns = _perf_ns() - self.t0
+        if not _autograd_profiler._is_profiler_enabled:
+            self.site.count += 1
+            self.site.ns += ns
+        if self._collected is not None:
+            self._collected.__exit__(*exc)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+
+    def set(self, **kw: Any) -> None:
+        return None
+
+
+def span(name: str, cat: str = "host", **args: Any) -> Any:
+    """A span of the host's work named ``name``, on every sink that is on
+    (the module docstring): ``with span("engine.offload", "engine") as s``.
+    The handle's ``set(**kw)`` adds arguments, kept by a collecting tracer
+    alone; its ``span_id`` is None unless a collecting tracer records it."""
+    tracer = _active
+    if tracer.enabled or _autograd_profiler._is_profiler_enabled:
+        return _SinkSpan(_site(name), name, cat, tracer, args)
+    try:
+        return _local.sites[name]
+    except (AttributeError, KeyError):
+        return _site(name)
+
+
+def span_totals() -> Dict[str, Tuple[int, int]]:
+    """``{name: (closed spans, total ns)}`` of every span closed in this
+    process outside a ``torch.profiler`` session, summed over threads (a
+    span closing while this reads may show in its count and not yet in its
+    time)."""
+    with _thread_sites_lock:
+        every = list(_thread_sites)
+    out: Dict[str, Tuple[int, int]] = {}
+    for sites in every:
+        for name, site in list(sites.items()):
+            if site.count:
+                count, ns = out.get(name, (0, 0))
+                out[name] = (count + site.count, ns + site.ns)
+    return out
+
+
+def _publish(registry: "obs_metrics.MetricsRegistry") -> None:
+    """The span totals as two counter series of ``registry``, read at every
+    scrape."""
+    registry.callback_counter(
+        "repro_span_total", "spans closed outside a profiler session",
+        ("span",), lambda: {(n,): c for n, (c, _) in span_totals().items()})
+    registry.callback_counter(
+        "repro_span_seconds_total",
+        "host seconds in spans closed outside a profiler session", ("span",),
+        lambda: {(n,): ns * 1e-9 for n, (_, ns) in span_totals().items()})
+
+
+obs_metrics.add_process_series(_publish)
 
 
 class TracingBackend:

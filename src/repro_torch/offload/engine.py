@@ -31,9 +31,10 @@ schedule.
 :meth:`OffloadEngine.profile_offload` runs one dispatch under
 ``torch.profiler`` and feeds the device-side schedule time back into the
 telemetry (``device_latency_by_coll_us``, the measured-on-device latency
-source); under a collecting tracer (:mod:`repro_torch.obs.tracing`) a
-dispatch emits ``engine`` spans and a planned sim dispatch runs the traced
-lowering (phase and round spans). Every telemetry producer also publishes
+source). Every dispatch opens ``engine`` spans (:mod:`repro_torch.obs.tracing`:
+counted always, profiler ranges under a profiler); under a collecting tracer
+a planned sim dispatch also runs the traced lowering (phase and round
+spans). Every telemetry producer also publishes
 into :mod:`repro_torch.obs.metrics` and :mod:`repro_torch.obs.events`.
 """
 
@@ -620,19 +621,19 @@ class OffloadEngine:
         ``torch.cuda.synchronize()`` on a GPU; spmd dispatches run inside
         the caller's program and are not timed.
 
-        When a collecting tracer is installed (:mod:`repro_torch.obs.tracing`)
-        the dispatch is wrapped in ``engine``-category spans, and planned
-        *sim*-mode requests run the traced lowering — cached under a
+        Every dispatch runs inside ``engine.offload`` and its children
+        (``engine.prepare``, which holds ``engine.compile`` on a miss,
+        ``engine.drain``, ``engine.schedule``, ``engine.wait``,
+        ``engine.record``: spans of
+        :mod:`repro_torch.obs.tracing`, counted always and ranges under a
+        profiler). Only a collecting tracer changes what runs: planned
+        *sim*-mode requests then take the traced lowering — cached under a
         separate key (``|traced``), so the untraced schedule is untouched —
         emitting one span per plan phase and one per communication round
         (K1's rounds split its phase evenly). Driver and spmd dispatches only
-        get the spans around the dispatch. With the default no-op tracer the
-        dispatch and the schedule cache are exactly the untraced path.
+        get the spans around the dispatch.
         """
-        tracer = obs_tracing.get_tracer()
-        if not tracer.enabled:
-            return self._offload(descriptor, x, axis_name, mesh, None)
-        with tracer.span("engine.offload", "engine") as span:
+        with obs_tracing.span("engine.offload", "engine") as span:
             return self._offload(descriptor, x, axis_name, mesh, span)
 
     def _offload(
@@ -643,118 +644,120 @@ class OffloadEngine:
         mesh: Any,
         span: Any,
     ) -> PyTree:
-        try:
-            desc = self._as_descriptor(descriptor)
-        except Exception:
-            self.telemetry.errors += 1
-            raise
-        if axis_name is not None and not isinstance(axis_name, str):
-            axis_name = tuple(axis_name) or None
-        if mesh is not None and axis_name is None:
-            raise ValueError("driver mode (mesh=...) requires axis_name")
-        # planned sim requests run the traced lowering under a tracer; it
-        # lives under its own cache key so the untraced schedule is never
-        # evicted or shadowed
-        traced = span is not None and axis_name is None and mesh is None
-        if len(desc.axes) > 1:
+        collected = span.span_id is not None
+        with obs_tracing.span("engine.prepare", "engine"):
             try:
-                plan, words = self._plan_for(desc)
+                desc = self._as_descriptor(descriptor)
             except Exception:
                 self.telemetry.errors += 1
                 raise
-            _, bfields = self._resolve_backend(desc, plan, axis_name)
-            key = self._planned_cache_key(
-                words, plan, axis_name, mesh, backend_fields=bfields
+            if axis_name is not None and not isinstance(axis_name, str):
+                axis_name = tuple(axis_name) or None
+            if mesh is not None and axis_name is None:
+                raise ValueError("driver mode (mesh=...) requires axis_name")
+            # planned sim requests run the traced lowering under a collecting
+            # tracer; it lives under its own cache key so the untraced
+            # schedule is never evicted or shadowed
+            traced = collected and axis_name is None and mesh is None
+            if len(desc.axes) > 1:
+                try:
+                    plan, words = self._plan_for(desc)
+                except Exception:
+                    self.telemetry.errors += 1
+                    raise
+                _, bfields = self._resolve_backend(desc, plan, axis_name)
+                key = self._planned_cache_key(
+                    words, plan, axis_name, mesh, backend_fields=bfields
+                )
+                if not traced and axis_name is None and mesh is None \
+                        and runtime_chaos.active():
+                    # a chaos scope must see (and be able to fail) individual
+                    # messages, which a cached schedule would not expose:
+                    # route the dispatch onto the same traced lowering — and
+                    # the same cache key — the tracer uses (a fused-backend
+                    # descriptor still runs its kernel there, free of faults)
+                    traced = True
+                if traced:
+                    key += b"|traced"
+                self._plans.setdefault(key, plan)
+            else:
+                traced = False
+                key = self._cache_key(desc, axis_name, mesh)
+            if collected:
+                span.set(
+                    coll=desc.coll_type.name.lower(),
+                    mode=self._mode_tag(axis_name, mesh),
+                    p=int(desc.comm_size),
+                    traced_plan=traced,
+                )
+            sched = self._cache.get(key)
+            cache_events = obs_metrics.get_registry().counter(
+                "repro_engine_cache_events_total",
+                "compiled-schedule cache lookups",
+                labelnames=("event",),
             )
-            if not traced and axis_name is None and mesh is None \
-                    and runtime_chaos.active():
-                # a chaos scope must see (and be able to fail) individual
-                # messages, which a cached schedule would not expose: route
-                # the dispatch onto the same traced lowering — and the same
-                # cache key — the tracer uses (a fused-backend descriptor
-                # still runs its kernel there, free of faults)
-                traced = True
-            if traced:
-                key += b"|traced"
-            self._plans.setdefault(key, plan)
-        else:
-            traced = False
-            key = self._cache_key(desc, axis_name, mesh)
-        if span is not None:
-            span.set(
-                coll=desc.coll_type.name.lower(),
-                mode=self._mode_tag(axis_name, mesh),
-                p=int(desc.comm_size),
-                traced_plan=traced,
-            )
-        sched = self._cache.get(key)
-        cache_events = obs_metrics.get_registry().counter(
-            "repro_engine_cache_events_total",
-            "compiled-schedule cache lookups",
-            labelnames=("event",),
-        )
-        if sched is None:
-            try:
-                if span is not None:
-                    with obs_tracing.get_tracer().span(
+            if sched is None:
+                try:
+                    with obs_tracing.span(
                         "engine.compile", "engine",
                         coll=desc.coll_type.name.lower(),
                     ):
                         sched = self._compile(
                             desc, key, axis_name, mesh, traced=traced
                         )
-                else:
-                    sched = self._compile(
-                        desc, key, axis_name, mesh, traced=traced
-                    )
-            except Exception:
-                self.telemetry.errors += 1
-                raise
-            self._cache[key] = sched
-            self.telemetry.misses += 1
-            self.telemetry.compiles += 1
-            self.telemetry.cache_size = len(self._cache)
-            cache_state = "miss"
-            if span is not None:
-                span.set(cache="miss")
-            cache_events.inc(event="miss")
-            obs_events.record(
-                "cache_miss", coll=sched.coll, scope="schedule"
-            )
-        else:
-            self.telemetry.hits += 1
-            cache_state = "hit"
-            if span is not None:
-                span.set(cache="hit")
-            cache_events.inc(event="hit")
+                except Exception:
+                    self.telemetry.errors += 1
+                    raise
+                self._cache[key] = sched
+                self.telemetry.misses += 1
+                self.telemetry.compiles += 1
+                self.telemetry.cache_size = len(self._cache)
+                cache_state = "miss"
+                if collected:
+                    span.set(cache="miss")
+                cache_events.inc(event="miss")
+                obs_events.record(
+                    "cache_miss", coll=sched.coll, scope="schedule"
+                )
+            else:
+                self.telemetry.hits += 1
+                cache_state = "hit"
+                if collected:
+                    span.set(cache="hit")
+                cache_events.inc(event="hit")
 
-        timed = axis_name is None or mesh is not None
-        device = self.device if mesh is None else mesh.device
-        if desc.coll_type == CollType.BARRIER:
-            if mesh is not None and x is None:
-                x = torch.zeros((desc.comm_size,), device=device)
-        elif timed:
-            self._validate_payload(desc, x, device)
+            timed = axis_name is None or mesh is not None
+            device = self.device if mesh is None else mesh.device
+            if desc.coll_type == CollType.BARRIER:
+                if mesh is not None and x is None:
+                    x = torch.zeros((desc.comm_size,), device=device)
+            elif timed:
+                self._validate_payload(desc, x, device)
 
         if timed:
             on_gpu = device.type == "cuda"
-            if on_gpu:
-                torch.cuda.synchronize(device)
+            with obs_tracing.span("engine.drain", "engine"):
+                if on_gpu:
+                    torch.cuda.synchronize(device)
             t0 = time.perf_counter()
-            out = sched.fn(x)
-            if on_gpu:
-                torch.cuda.synchronize(device)
+            with obs_tracing.span("engine.schedule", "engine"):
+                out = sched.fn(x)
+            with obs_tracing.span("engine.wait", "engine"):
+                if on_gpu:
+                    torch.cuda.synchronize(device)
             latency = time.perf_counter() - t0
         else:
-            out = sched.fn(x)
+            with obs_tracing.span("engine.schedule", "engine"):
+                out = sched.fn(x)
             latency = None  # inside the caller's program: not timed
-        self.telemetry.record_dispatch(sched.coll, latency)
-        obs_events.record(
-            "dispatch",
-            coll=sched.coll,
-            cache=cache_state,
-            latency_us=None if latency is None else round(latency * 1e6, 1),
-        )
+        with obs_tracing.span("engine.record", "engine"):
+            self.telemetry.record_dispatch(sched.coll, latency)
+            obs_events.record(
+                "dispatch",
+                coll=sched.coll,
+                cache=cache_state,
+                latency_us=None if latency is None else round(latency * 1e6, 1),
+            )
         return out
 
     def profile_offload(

@@ -36,3 +36,10 @@ def run_check_module(module: str, *args: str, timeout: int = 420) -> str:
 @pytest.fixture(scope="session")
 def subprocess_runner():
     return run_check_module
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "card: needs a CUDA card; the test skips itself without one",
+    )

@@ -7,7 +7,8 @@ traced dispatch against ``repro.obs`` and the reference engine.
   output, event for event.
 * A traced sim dispatch (device ``cpu``; the fused backend runs K1's plain
   version, the reference Pallas interpret mode) gives the reference's span
-  names, categories, arguments and parent structure, on the default and
+  names, categories, arguments and parent structure (beside the port's own
+  dispatch spans, each once under ``engine.offload``), on the default and
   the ``"pallas"`` backend, chunked and unchunked; its result is bitwise
   equal to the untraced dispatch's and to the reference's. Float32 sums on
   small integers: exact, no tolerance.
@@ -151,12 +152,28 @@ def test_chrome_round_trip_equals_the_references():
         (s.name, s.cat, s.parent_id, s.args) for s in jback]
 
 
-def _structure(spans):
-    """Span names, categories, arguments and parent names, in id order."""
+#: the port's own spans inside a dispatch, which the reference lacks
+PORT_SPANS = ("engine.prepare", "engine.drain", "engine.schedule",
+              "engine.wait", "engine.record")
+
+
+def _structure(spans, skip=()):
+    """Span names, categories, arguments and parent names, in id order;
+    the spans named in ``skip`` left out, their children hung on the
+    nearest ancestor kept."""
     by_id = {s.span_id: s for s in spans}
+
+    def kept_parent(s):
+        parent = by_id.get(s.parent_id)
+        while parent is not None and parent.name in skip:
+            parent = by_id.get(parent.parent_id)
+        return parent
+
     rows = []
     for s in sorted(spans, key=lambda s: s.span_id):
-        parent = by_id.get(s.parent_id)
+        if s.name in skip:
+            continue
+        parent = kept_parent(s)
         rows.append((s.name, s.cat, None if parent is None else parent.name,
                      dict(s.args)))
     return rows
@@ -193,8 +210,12 @@ def test_traced_dispatch_matches_the_reference(coll, axes, backend, optimize,
     assert np.array_equal(tgot.numpy(), tbase.numpy())
     assert np.array_equal(tgot.numpy(), jgot)
     assert np.array_equal(jgot, jbase)
-    got, want = _structure(ttr.spans()), _structure(jtr.spans())
-    assert got == want
+    got = _structure(ttr.spans(), skip=PORT_SPANS)
+    assert got == _structure(jtr.spans())
+    # the port's own spans: each once, a child of engine.offload
+    own = [(name, parent) for name, _, parent, _ in _structure(ttr.spans())
+           if name in PORT_SPANS]
+    assert own == [(name, "engine.offload") for name in PORT_SPANS]
     assert any(cat == "round" for _, cat, _, _ in got)
     # a second traced dispatch hits the traced schedule: no compile span
     with ttracing.tracing() as ttr2:
