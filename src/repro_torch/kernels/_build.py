@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
@@ -41,6 +43,20 @@ NVCC_FLAGS: Tuple[str, ...] = (
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _stream_of(device_index: int) -> int:
+    """The current CUDA stream of a device, as a raw pointer."""
+    return torch.cuda.current_stream(device_index).cuda_stream
+
+
+# PyTorch's own accessors where the build has them (a CUDA build does): the
+# raw current stream of a device and the current device, without building
+# Python objects. A launch reads the stream at call time, never caches it:
+# under a CUDA graph's capture it is the capturing stream
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _stream_of)
+current_device = getattr(torch._C, "_cuda_getDevice",
+                         torch.cuda.current_device)
 
 
 def find_nvcc() -> str:

@@ -524,3 +524,20 @@ extern "C" int k1_fused_comm(int path, int kind, int op, int dtype, int inclusiv
     default: return -1;
   }
 }
+
+// k1_fused_comm for one leaf without totals (SCAN or a butterfly), the call
+// packed into one word as fused_collective.pack_call builds it (ctypes
+// converts each argument on every call): bit 0 the path, 1-2 the kind, 3-5
+// the op, 6-8 the dtype, 9 inclusive, 10-14 vec, 15-19 p_max, 20-28 block,
+// 29-44 smem_bytes, 45-62 p. scratch as k1_fused_comm takes it. Returns what
+// k1_fused_comm returns; 0 means one kernel launched.
+extern "C" int k1_fused_packed(long long code, long long M, const void* x, void* y,
+                               void* scratch, void* stream) {
+  int made = 0;
+  return k1_fused_comm((int)(code & 1), (int)((code >> 1) & 3), (int)((code >> 3) & 7),
+                       (int)((code >> 6) & 7), (int)((code >> 9) & 1), (int)(code >> 45), M,
+                       (int)((code >> 15) & 31), (int)((code >> 10) & 31),
+                       (int)((code >> 20) & 511), (int)((code >> 29) & 0xffff), x, nullptr,
+                       nullptr, y, nullptr, nullptr, nullptr, nullptr, nullptr, scratch, stream,
+                       &made);
+}

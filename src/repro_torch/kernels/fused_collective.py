@@ -18,7 +18,10 @@ Three layers, as for every kernel of the port:
   CUDA tensor launches the kernel on the path :func:`plan_launch` picks
   (``register`` for 2 <= p <= 16, the column tile in registers; ``column``
   otherwise, the PR 13 kernel with the column in shared memory or global
-  scratch) or raises (a build or launch failure raises too).
+  scratch) or raises (a build or launch failure raises too). A launch of
+  one leaf without totals goes through the C entry ``k1_fused_packed``, its
+  arguments packed into one word once per shape and dtype
+  (:func:`pack_call`); the others through ``k1_fused_comm``.
   :data:`launches` counts the launches the C entry reports, and
   :data:`path_launches` the same by path. A launch's staging (checks,
   ``(p, M)`` rows, outputs) runs in the span ``k1.stage``, the C call in
@@ -29,6 +32,10 @@ Three layers, as for every kernel of the port:
   launch per comm phase; with them, per rank inside
   :func:`repro_torch.compat.shard_map` with one K2 launch per comm phase
   (:mod:`repro_torch.kernels.spmd_collective`, the reference's spmd form).
+  A plan that is one comm phase, over one contiguous CUDA tensor outside a
+  ``CostMode``, skips the phase loop: the stacked schedule makes the
+  packed call on the payload as it stands, the same kernel with the same
+  arguments.
 
 :func:`supports_plan` gives the capability envelope with the reference's
 reason tokens.
@@ -38,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
@@ -55,6 +63,7 @@ from repro_torch.core.trees import (
     tree_leaves,
     tree_unflatten,
 )
+from repro_torch.kernels import _build
 from repro_torch.obs import tracing as obs_tracing
 from repro_torch.offload.planner import (
     CollectivePlan,
@@ -63,7 +72,7 @@ from repro_torch.offload.planner import (
     _check_device,
     _zero_coord_mask,
 )
-from repro_torch.roofline.op_cost import charged
+from repro_torch.roofline import op_cost
 
 PyTree = Any
 
@@ -305,11 +314,9 @@ def comm_phase_plain(
 
 
 def _library() -> ctypes.CDLL:
-    from repro_torch.kernels._build import load_library
-
-    lib = load_library("fused_collective")
+    lib = _build.load_library("fused_collective")
     fn = lib.k1_fused_comm
-    if fn.argtypes is None:  # first use: declare the signature
+    if fn.argtypes is None:  # first use: declare the signatures
         fn.argtypes = (
             [ctypes.c_int] * 6
             + [ctypes.c_longlong]
@@ -318,6 +325,12 @@ def _library() -> ctypes.CDLL:
             + [ctypes.POINTER(ctypes.c_int)]
         )
         fn.restype = ctypes.c_int
+        # (code, M, x, y, scratch, stream): every argument declared a
+        # pointer, which ctypes converts from an int fastest; the integers
+        # (long long in C) pass in the same 64-bit registers on an LP64 host
+        packed = lib.k1_fused_packed
+        packed.argtypes = [ctypes.c_void_p] * 6
+        packed.restype = ctypes.c_int
     return lib
 
 
@@ -486,9 +499,16 @@ def _launch(
         op_code, flat, ys, ts, back = _stage(kind, p, op, leaves, "fused kernel")
         dtype, device = flat[0].dtype, flat[0].device
         M = flat[0].shape[1]
-        plan = plan_launch(kind, p, M, dtype, len(flat),
-                           aligned_rows(flat + ys + (ts or []), M), path=path)
-    if M > 0:
+        call = None
+        if ts is None and len(flat) == 1:
+            call = pack_call(kind, p, op, inclusive, flat[0].shape, dtype, path)
+        if call is None:
+            plan = plan_launch(kind, p, M, dtype, len(flat),
+                               aligned_rows(flat + ys + (ts or []), M),
+                               path=path)
+    if call is not None:
+        _launch_packed(call, flat[0], ys[0], kind, op)
+    elif M > 0:
         with obs_tracing.span("k1.launch", "kernel"):
             lib = _library()
             scratch = None
@@ -516,6 +536,87 @@ def _launch(
     return back(ys), (back(ts) if ts is not None else None)
 
 
+#: ranks the code word of ``k1_fused_packed`` holds (18 bits); its other
+#: fields hold every value :func:`plan_launch` gives (VEC and P_MAX up to 16,
+#: blocks up to 256, shared memory up to :data:`_SMEM_LIMIT`)
+_PACKED_P_MAX = (1 << 18) - 1
+assert _SMEM_LIMIT < 1 << 16 and max(_BLOCKS + (REGISTER_THREADS,)) < 1 << 9
+
+
+@dataclass(frozen=True)
+class PackedCall:
+    """One leaf's K1 call over ``(p, M)`` rows, packed into the code word
+    of the C entry ``k1_fused_packed`` (``csrc/fused_collective.cu``): the
+    plan and code for rows that do not all start on 16 bytes
+    (``by_alignment[0]``) and for rows that do (``[1]``)."""
+
+    M: int
+    by_alignment: Tuple[Tuple[LaunchPlan, int], Tuple[LaunchPlan, int]]
+
+
+@functools.lru_cache(maxsize=1024)
+def pack_call(
+    kind: PhaseKind, p: int, op: AssocOp, inclusive: bool,
+    shape: Sequence[int], dtype: torch.dtype, path: Optional[str] = None,
+) -> Optional[PackedCall]:
+    """K1's call on one leaf of ``shape`` and ``dtype``, planned by
+    :func:`plan_launch` (on ``path`` where one is named), or None where the
+    packed entry does not take it (an op of several leaves, FUSED_SCAN_TOTAL,
+    a dtype K1 lacks, no leading rank axis of ``p``, no columns, more ranks
+    than the word holds): :func:`_launch` then makes the unpacked call, or
+    raises as it does."""
+    entry = _KERNEL_OPS.get(op.combine)
+    if (entry is None or entry[1] != 1 or kind not in _KIND_CODES
+            or kind == PhaseKind.FUSED_SCAN_TOTAL or dtype not in _DTYPE_CODES
+            or not shape or shape[0] != p or p > _PACKED_P_MAX):
+        return None
+    M = math.prod(shape[1:])
+    if M == 0:
+        return None
+    rows_aligned = (M * dtype.itemsize) % 16 == 0
+    got = []
+    for aligned in (False, rows_aligned):
+        plan = plan_launch(kind, p, M, dtype, 1, aligned, path=path)
+        code = (_PATH_CODES[plan.path] | _KIND_CODES[kind] << 1
+                | entry[0] << 3 | _DTYPE_CODES[dtype] << 6
+                | int(inclusive) << 9 | plan.vec << 10 | plan.p_max << 15
+                | plan.block << 20 | plan.smem_bytes << 29 | p << 45)
+        got.append((plan, code))
+    return PackedCall(M, (got[0], got[1]))
+
+
+def _launch_packed(
+    call: PackedCall, x: torch.Tensor, y: torch.Tensor, kind: PhaseKind,
+    op: AssocOp,
+) -> None:
+    """Run a packed call from the contiguous leaf ``x`` into ``y`` (both
+    ``(p, ...)`` on one card) on the stream current at the call, on that
+    card: every one-leaf K1 launch but FUSED_SCAN_TOTAL's."""
+    global launches
+    device_index = x.get_device()
+    if device_index != _build.current_device():
+        with torch.cuda.device(device_index):
+            return _launch_packed(call, x, y, kind, op)
+    with obs_tracing.span("k1.launch", "kernel"):
+        xp, yp = x.data_ptr(), y.data_ptr()
+        plan, code = call.by_alignment[not (xp | yp) % 16]
+        scratch = None
+        if plan.scratch:
+            scratch = torch.empty(plan.scratch, dtype=x.dtype, device=x.device)
+        rc = _library().k1_fused_packed(
+            code, call.M, xp, yp,
+            None if scratch is None else scratch.data_ptr(),
+            _build.raw_stream(device_index))
+    if rc != 0:
+        raise RuntimeError(
+            f"fused collective kernel launch failed (code {rc}) on the "
+            f"{plan.path} path for {kind.name} op={op.name} dtype={x.dtype} "
+            f"p={x.shape[0]} M={call.M}"
+        )
+    launches += 1
+    path_launches[plan.path] += 1
+
+
 def comm_phase(
     kind: PhaseKind, p: int, op: AssocOp, tree: PyTree, *,
     inclusive: bool = True, path: Optional[str] = None,
@@ -528,7 +629,7 @@ def comm_phase(
     leaves = tree_leaves(tree)
     if leaves and leaves[0].device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused kernel for device {leaves[0].device}")
-    with charged("k1", phase=kind.name, p=p,
+    with op_cost.charged("k1", phase=kind.name, p=p,
                  numel=sum(t.numel() for t in leaves),
                  dtype=leaves[0].dtype if leaves else torch.float32):
         if not leaves or leaves[0].device.type == "cpu":
@@ -629,6 +730,20 @@ def _lower_fused_spmd(plan: CollectivePlan, op: AssocOp, axis_names):
     return run
 
 
+def single_launch_phase(plan: CollectivePlan):
+    """The plan's one phase where the plan is a single SCAN or TOTAL phase
+    on its active level (every other level of one rank), else None. The
+    phase loop's reshapes are then views of the stacked ``(p, ...)``
+    payload, so K1 runs on the payload as it stands: one launch a call."""
+    lv = active_level(plan)
+    one = plan.phases[0] if len(plan.phases) == 1 else None
+    if (one is None or lv is None or one.level != lv
+            or one.kind not in (PhaseKind.SCAN, PhaseKind.TOTAL)
+            or plan.result != one.dst):
+        return None
+    return one
+
+
 def lower_fused(
     plan: CollectivePlan,
     op: "AssocOp | str | None" = None,
@@ -651,7 +766,13 @@ def lower_fused(
     ``ValueError`` for plans outside :func:`supports_rank_plan`; callers wanting a soft fallback go through the
     lowering registry (:mod:`repro_torch.offload.backends`). Over stacked
     leaves on a CUDA ``device`` the lowering builds or loads K1's library,
-    so that the schedule's first call does not.
+    so that the schedule's first call does not. Where the plan is one SCAN
+    or TOTAL phase on its active level and a call's payload is one
+    contiguous tensor on ``device`` outside a ``CostMode``, the untraced
+    schedule skips the phase loop and launches K1 from its
+    :class:`PackedCall`: the same kernel and arguments, so the same bits,
+    in a fresh tensor, on the stream current at the call. Every other call
+    runs the phase loop.
 
     ``traced=True`` (stacked leaves only) records, under a collecting
     tracer, one ``phase`` span for each K1 launch and
@@ -669,15 +790,17 @@ def lower_fused(
     if axis_names is not None:
         return _lower_fused_spmd(plan, op, tuple(axis_names))
     device = resolve_device(device)
-    if device.type == "cuda":
-        # build or load K1 with the schedule, not inside its first call
-        _library()
     logical = plan.logical_sizes
     k = len(logical)
     p_total = plan.p
     lv_active = active_level(plan)
     coll_name = plan.coll.name.lower()
     sim_backends = [alg.SimBackend(p_axis, device) for p_axis in logical]
+    if device.type == "cuda":
+        # build or load K1 with the schedule, not inside its first call
+        _library()
+    one = single_launch_phase(plan)
+    packs = device.type == "cuda" and one is not None and not traced
 
     def to_mesh(tree: PyTree) -> PyTree:
         leaves, spec = tree_flatten(tree)
@@ -691,7 +814,30 @@ def lower_fused(
             [a.reshape((p_total,) + tuple(a.shape[k:])) for a in leaves], spec
         )
 
+    def run_packed(x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The one phase straight from a packed call, past the phase
+        loop's reshapes, or None where the payload is not one contiguous
+        tensor on the lowering's device outside a ``CostMode`` (whose
+        charge of K1 lies in :func:`comm_phase`), or the call does not
+        pack."""
+        if (type(x) is not torch.Tensor or not x.is_contiguous()
+                or x.get_device() != device.index
+                or op_cost.active() is not None):
+            return None
+        call = pack_call(one.kind, p_total, op, one.inclusive, x.shape,
+                         x.dtype)
+        if call is None:
+            return None
+        with obs_tracing.span("k1.stage", "kernel"):
+            y = torch.empty_like(x)
+        _launch_packed(call, x, y, one.kind, op)
+        return y
+
     def run(x: Optional[PyTree]) -> PyTree:
+        if packs:
+            y = run_packed(x)
+            if y is not None:
+                return y
         tracer = obs_tracing.get_tracer() if traced else obs_tracing.NOOP
         regs = {}
         if plan.coll == CollType.BARRIER:

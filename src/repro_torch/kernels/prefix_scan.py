@@ -247,18 +247,6 @@ def _call(entry: Entry, R: int, L: int, dtype: torch.dtype, op: str,
     return hit
 
 
-def _stream_of(device_index: int) -> int:
-    """The current CUDA stream of a device, as a raw pointer."""
-    return torch.cuda.current_stream(device_index).cuda_stream
-
-
-# PyTorch's own accessors where the build has them (a CUDA build does): the
-# raw stream and the current device without building Python objects
-_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _stream_of)
-_current_device = getattr(torch._C, "_cuda_getDevice",
-                          torch.cuda.current_device)
-
-
 def _launch(
     x: torch.Tensor, op: str, exclusive: bool, reverse: bool, *,
     path: Optional[str] = None, vec: Optional[int] = None,
@@ -277,7 +265,7 @@ def _launch(
     if R == 0 or L == 0:
         return y
     device = x.get_device()
-    if device != _current_device():
+    if device != _build.current_device():
         raise ValueError(
             f"the scan's input lies on cuda:{device}, the current device is "
             f"cuda:{torch.cuda.current_device()}"
@@ -290,7 +278,7 @@ def _launch(
     if plan.status_words:
         ws = torch.empty(plan.status_words, dtype=torch.int64, device=x.device)
     rc = entry.fn(code, xp, yp, R, L, None if ws is None else ws.data_ptr(),
-                  _stream(device))
+                  _build.raw_stream(device))
     if rc != 0:
         raise RuntimeError(
             f"prefix scan kernel launch failed (code {rc}) on the {plan.path} "

@@ -35,6 +35,7 @@ trivial HTTP handler.
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -120,11 +121,18 @@ class Counter(_Metric):
         self._values: Dict[LabelValues, float] = {}
 
     def inc(self, amount: float = 1.0, **labels: Any) -> None:
+        self._add(self._key(labels), amount)
+
+    def _add(self, key: LabelValues, amount: float = 1.0) -> None:
         if amount < 0:
             raise ValueError(f"counter {self.name} cannot decrease")
-        key = self._key(labels)
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
+
+    def child(self, **labels: Any) -> Callable[..., None]:
+        """``inc`` of one label set, its labels checked here once: the
+        returned function takes the amount alone (default 1)."""
+        return functools.partial(self._add, self._key(labels))
 
     def value(self, **labels: Any) -> float:
         with self._lock:
@@ -213,7 +221,13 @@ class Histogram(_Metric):
         self._sums: Dict[LabelValues, float] = {}
 
     def observe(self, value: float, **labels: Any) -> None:
-        key = self._key(labels)
+        self._observe(self._key(labels), value)
+
+    def child(self, **labels: Any) -> Callable[[float], None]:
+        """``observe`` of one label set, its labels checked here once."""
+        return functools.partial(self._observe, self._key(labels))
+
+    def _observe(self, key: LabelValues, value: float) -> None:
         value = float(value)
         with self._lock:
             counts = self._counts.get(key)

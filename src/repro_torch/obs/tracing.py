@@ -13,8 +13,10 @@ host-side spans with explicit parent links. The span tree:
             engine.prepare   decode, plan memo, backend, cache key, lookup,
                              payload validation
               ->  engine.compile             (a cache miss only)
+              ->  engine.reuse               (a prepared dispatch only)
             engine.drain     the device sync before the schedule
-            engine.schedule  the schedule: phase loop, staging, launches
+            engine.schedule  the schedule: phase loop (or one packed K1
+                             call), staging, launches
               ->  k1.stage, k1.launch        (one pair a K1 launch)
               ->  plan.phase:<KIND>:L<level> (traced lowering only)
                 ->  plan.round:<i>

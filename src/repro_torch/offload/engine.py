@@ -123,6 +123,41 @@ def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
+@dataclasses.dataclass(frozen=True)
+class _Meters:
+    """The registry series a dispatch of one coll advances, bound to their
+    labels (:meth:`~repro_torch.obs.metrics.Counter.child`) in the registry
+    they were bound in."""
+
+    registry: obs_metrics.MetricsRegistry
+    hit: Callable[..., None]
+    miss: Callable[..., None]
+    dispatched: Callable[..., None]
+    latency_us: Callable[[float], None]
+
+    @classmethod
+    def bind(cls, coll: str) -> "_Meters":
+        reg = obs_metrics.get_registry()
+        events = reg.counter(
+            "repro_engine_cache_events_total",
+            "compiled-schedule cache lookups",
+            labelnames=("event",),
+        )
+        return cls(
+            reg, events.child(event="hit"), events.child(event="miss"),
+            reg.counter(
+                "repro_engine_dispatches_total",
+                "engine offload dispatches",
+                labelnames=("coll",),
+            ).child(coll=coll),
+            reg.histogram(
+                "repro_engine_dispatch_latency_us",
+                "wall-clock latency of timed engine dispatches",
+                labelnames=("coll",),
+            ).child(coll=coll),
+        )
+
+
 @dataclasses.dataclass
 class EngineTelemetry:
     """Counters the engine maintains per dispatch (the NIC status registers).
@@ -160,16 +195,24 @@ class EngineTelemetry:
     backend_fallback_reasons: Dict[str, int] = dataclasses.field(
         default_factory=dict
     )
+    _meters: Dict[str, _Meters] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False
+    )
+
+    def meters(self, coll: str) -> _Meters:
+        """The registry series of ``coll``, bound once in the registry in
+        use (again once it was swapped)."""
+        got = self._meters.get(coll)
+        if got is None or got.registry is not obs_metrics.get_registry():
+            got = self._meters[coll] = _Meters.bind(coll)
+        return got
 
     def record_dispatch(self, coll: str, latency_s: Optional[float]) -> None:
+        """One dispatch of ``coll``, timed when ``latency_s`` is given."""
+        meters = self.meters(coll)
         self.dispatches += 1
         self.calls_by_coll[coll] = self.calls_by_coll.get(coll, 0) + 1
-        reg = obs_metrics.get_registry()
-        reg.counter(
-            "repro_engine_dispatches_total",
-            "engine offload dispatches",
-            labelnames=("coll",),
-        ).inc(coll=coll)
+        meters.dispatched()
         if latency_s is not None:
             self.timed_dispatches += 1
             self.total_latency_s += latency_s
@@ -177,11 +220,7 @@ class EngineTelemetry:
             tot, n = self.latency_by_coll.get(coll, (0.0, 0))
             self.latency_by_coll[coll] = (tot + latency_s, n + 1)
             self.latency_source_by_coll.setdefault(coll, "wall")
-            reg.histogram(
-                "repro_engine_dispatch_latency_us",
-                "wall-clock latency of timed engine dispatches",
-                labelnames=("coll",),
-            ).observe(latency_s * 1e6, coll=coll)
+            meters.latency_us(latency_s * 1e6)
 
     def record_device_latency(
         self, coll: str, latency_s: float, *, source: str = "profiler"
@@ -293,6 +332,12 @@ class CompiledSchedule:
     fn: Callable[[PyTree], PyTree]
 
 
+#: the wire words' dtype, whose bytes key a prepared dispatch
+_WORD = np.dtype(np.uint32)
+#: prepared dispatches an engine keeps (the oldest makes room)
+PREPARED_MAX = 256
+
+
 class OffloadEngine:
     """Descriptor-driven collective dispatch with a compiled-schedule cache.
 
@@ -300,6 +345,12 @@ class OffloadEngine:
     fields (rank, msg_type) normalized away — every rank of a communicator,
     and every repeat offload, shares one schedule, which is exactly the
     "program the NIC once, stream requests" contract of the paper.
+
+    A repeat sim-mode request skips the key's derivation too: once a
+    dispatch of the same wire bytes (or descriptor object) and payload
+    signature has succeeded, the next one finds its schedule in one lookup
+    (:meth:`_reuse_key`; the span ``engine.reuse``). The memo holds at most
+    :data:`PREPARED_MAX` entries.
 
     ``device`` defaults to ``"cuda"``; on a machine without CUDA that raises
     rather than quietly running on the CPU, so CPU runs pass
@@ -321,6 +372,11 @@ class OffloadEngine:
         # repeat dispatches neither re-run the capability check nor re-count
         # a fallback in telemetry
         self._backend_memo: Dict[Tuple[str, Any], Tuple] = {}
+        # prepared sim-mode dispatches, keyed on the request as it came in
+        # (its wire bytes, or the descriptor object) and the payload's
+        # signature; written only after a full dispatch of the same request
+        # and signature succeeded
+        self._prepared: Dict[Tuple[Any, Any], CompiledSchedule] = {}
         self.telemetry = EngineTelemetry()
 
     # -- descriptor helpers ------------------------------------------------
@@ -622,11 +678,23 @@ class OffloadEngine:
         the caller's program and are not timed.
 
         Every dispatch runs inside ``engine.offload`` and its children
-        (``engine.prepare``, which holds ``engine.compile`` on a miss,
-        ``engine.drain``, ``engine.schedule``, ``engine.wait``,
-        ``engine.record``: spans of
+        (``engine.prepare``, which holds ``engine.compile`` on a miss and
+        ``engine.reuse`` on a prepared dispatch, ``engine.drain``,
+        ``engine.schedule``, ``engine.wait``, ``engine.record``: spans of
         :mod:`repro_torch.obs.tracing`, counted always and ranges under a
-        profiler). Only a collecting tracer changes what runs: planned
+        profiler).
+
+        A sim-mode request repeated with a payload of the same signature
+        is a prepared dispatch: the cached schedule runs without the
+        descriptor's decode, key derivation and payload checks, which give
+        the same result as before for such a request; telemetry, registry
+        series and flight-recorder events read as after a full dispatch.
+        A collecting tracer, a chaos scope, spmd or driver mode, a payload
+        other than one tensor (or none), or another signature takes the
+        full path. (Under a ``CostMode`` the schedule still charges each
+        kernel it runs: what a prepared dispatch skips runs no aten op.)
+
+        Only a collecting tracer changes what runs: planned
         *sim*-mode requests then take the traced lowering — cached under a
         separate key (``|traced``), so the untraced schedule is untouched —
         emitting one span per plan phase and one per communication round
@@ -646,93 +714,21 @@ class OffloadEngine:
     ) -> PyTree:
         collected = span.span_id is not None
         with obs_tracing.span("engine.prepare", "engine"):
-            try:
-                desc = self._as_descriptor(descriptor)
-            except Exception:
-                self.telemetry.errors += 1
-                raise
-            if axis_name is not None and not isinstance(axis_name, str):
-                axis_name = tuple(axis_name) or None
-            if mesh is not None and axis_name is None:
-                raise ValueError("driver mode (mesh=...) requires axis_name")
-            # planned sim requests run the traced lowering under a collecting
-            # tracer; it lives under its own cache key so the untraced
-            # schedule is never evicted or shadowed
-            traced = collected and axis_name is None and mesh is None
-            if len(desc.axes) > 1:
-                try:
-                    plan, words = self._plan_for(desc)
-                except Exception:
-                    self.telemetry.errors += 1
-                    raise
-                _, bfields = self._resolve_backend(desc, plan, axis_name)
-                key = self._planned_cache_key(
-                    words, plan, axis_name, mesh, backend_fields=bfields
-                )
-                if not traced and axis_name is None and mesh is None \
-                        and runtime_chaos.active():
-                    # a chaos scope must see (and be able to fail) individual
-                    # messages, which a cached schedule would not expose:
-                    # route the dispatch onto the same traced lowering — and
-                    # the same cache key — the tracer uses (a fused-backend
-                    # descriptor still runs its kernel there, free of faults)
-                    traced = True
-                if traced:
-                    key += b"|traced"
-                self._plans.setdefault(key, plan)
+            reuse = sched = None
+            if not collected and axis_name is None and mesh is None:
+                reuse = self._reuse_key(descriptor, x)
+            if reuse is not None:
+                sched = self._prepared.get(reuse)
+            prepared = sched is not None
+            if prepared:
+                with obs_tracing.span("engine.reuse", "engine"):
+                    self.telemetry.hits += 1
+                    self.telemetry.meters(sched.coll).hit()
+                cache_state, timed, device = "hit", True, self.device
             else:
-                traced = False
-                key = self._cache_key(desc, axis_name, mesh)
-            if collected:
-                span.set(
-                    coll=desc.coll_type.name.lower(),
-                    mode=self._mode_tag(axis_name, mesh),
-                    p=int(desc.comm_size),
-                    traced_plan=traced,
+                sched, cache_state, timed, device, x = self._prepare(
+                    descriptor, x, axis_name, mesh, span, collected
                 )
-            sched = self._cache.get(key)
-            cache_events = obs_metrics.get_registry().counter(
-                "repro_engine_cache_events_total",
-                "compiled-schedule cache lookups",
-                labelnames=("event",),
-            )
-            if sched is None:
-                try:
-                    with obs_tracing.span(
-                        "engine.compile", "engine",
-                        coll=desc.coll_type.name.lower(),
-                    ):
-                        sched = self._compile(
-                            desc, key, axis_name, mesh, traced=traced
-                        )
-                except Exception:
-                    self.telemetry.errors += 1
-                    raise
-                self._cache[key] = sched
-                self.telemetry.misses += 1
-                self.telemetry.compiles += 1
-                self.telemetry.cache_size = len(self._cache)
-                cache_state = "miss"
-                if collected:
-                    span.set(cache="miss")
-                cache_events.inc(event="miss")
-                obs_events.record(
-                    "cache_miss", coll=sched.coll, scope="schedule"
-                )
-            else:
-                self.telemetry.hits += 1
-                cache_state = "hit"
-                if collected:
-                    span.set(cache="hit")
-                cache_events.inc(event="hit")
-
-            timed = axis_name is None or mesh is not None
-            device = self.device if mesh is None else mesh.device
-            if desc.coll_type == CollType.BARRIER:
-                if mesh is not None and x is None:
-                    x = torch.zeros((desc.comm_size,), device=device)
-            elif timed:
-                self._validate_payload(desc, x, device)
 
         if timed:
             on_gpu = device.type == "cuda"
@@ -758,7 +754,141 @@ class OffloadEngine:
                 cache=cache_state,
                 latency_us=None if latency is None else round(latency * 1e6, 1),
             )
+        if reuse is not None and not prepared:
+            self._remember(reuse, sched)
         return out
+
+    def _reuse_key(
+        self, descriptor: "CollectiveDescriptor | np.ndarray", x: Any,
+    ) -> Optional[Tuple[Any, Any]]:
+        """The memo key of a sim-mode request that may be prepared, or
+        None: ``(request, payload signature)``, the request being the wire
+        words' bytes (a 1-D uint32 array) or the descriptor object itself,
+        the signature the one tensor's shape, dtype, device and
+        contiguity, or None without a payload. A payload of any other form
+        and a chaos scope (which must see each message) take the full
+        path."""
+        if type(x) is torch.Tensor:
+            sig = (x.shape, x.dtype, x.device, x.is_contiguous())
+        elif x is None:
+            sig = None
+        else:
+            return None
+        if type(descriptor) is np.ndarray:
+            if descriptor.ndim != 1 or descriptor.dtype != _WORD:
+                return None
+            key = descriptor.tobytes()
+        elif type(descriptor) is CollectiveDescriptor:
+            key = descriptor
+        else:
+            return None
+        if runtime_chaos.active():
+            return None
+        return key, sig
+
+    def _remember(self, reuse: Tuple[Any, Any], sched: CompiledSchedule) -> None:
+        """Prepare the request and signature ``reuse`` names, after their
+        full dispatch succeeded; the oldest entry makes room."""
+        if reuse not in self._prepared \
+                and len(self._prepared) >= PREPARED_MAX:
+            del self._prepared[next(iter(self._prepared))]
+        self._prepared[reuse] = sched
+
+    def _prepare(
+        self,
+        descriptor: "CollectiveDescriptor | np.ndarray",
+        x: Optional[PyTree],
+        axis_name: AxisSpec,
+        mesh: Any,
+        span: Any,
+        collected: bool,
+    ) -> Tuple[CompiledSchedule, str, bool, torch.device, Optional[PyTree]]:
+        """The full path of ``engine.prepare``: decode, plan, key, cache
+        lookup (and compile on a miss), payload checks. Returns ``(schedule,
+        "hit" or "miss", timed, device, payload)``."""
+        try:
+            desc = self._as_descriptor(descriptor)
+        except Exception:
+            self.telemetry.errors += 1
+            raise
+        if axis_name is not None and not isinstance(axis_name, str):
+            axis_name = tuple(axis_name) or None
+        if mesh is not None and axis_name is None:
+            raise ValueError("driver mode (mesh=...) requires axis_name")
+        # planned sim requests run the traced lowering under a collecting
+        # tracer; it lives under its own cache key so the untraced
+        # schedule is never evicted or shadowed
+        traced = collected and axis_name is None and mesh is None
+        if len(desc.axes) > 1:
+            try:
+                plan, words = self._plan_for(desc)
+            except Exception:
+                self.telemetry.errors += 1
+                raise
+            _, bfields = self._resolve_backend(desc, plan, axis_name)
+            key = self._planned_cache_key(
+                words, plan, axis_name, mesh, backend_fields=bfields
+            )
+            if not traced and axis_name is None and mesh is None \
+                    and runtime_chaos.active():
+                # a chaos scope must see (and be able to fail) individual
+                # messages, which a cached schedule would not expose:
+                # route the dispatch onto the same traced lowering — and
+                # the same cache key — the tracer uses (a fused-backend
+                # descriptor still runs its kernel there, free of faults)
+                traced = True
+            if traced:
+                key += b"|traced"
+            self._plans.setdefault(key, plan)
+        else:
+            traced = False
+            key = self._cache_key(desc, axis_name, mesh)
+        if collected:
+            span.set(
+                coll=desc.coll_type.name.lower(),
+                mode=self._mode_tag(axis_name, mesh),
+                p=int(desc.comm_size),
+                traced_plan=traced,
+            )
+        sched = self._cache.get(key)
+        if sched is None:
+            try:
+                with obs_tracing.span(
+                    "engine.compile", "engine",
+                    coll=desc.coll_type.name.lower(),
+                ):
+                    sched = self._compile(
+                        desc, key, axis_name, mesh, traced=traced
+                    )
+            except Exception:
+                self.telemetry.errors += 1
+                raise
+            self._cache[key] = sched
+            self.telemetry.misses += 1
+            self.telemetry.compiles += 1
+            self.telemetry.cache_size = len(self._cache)
+            cache_state = "miss"
+            if collected:
+                span.set(cache="miss")
+            self.telemetry.meters(sched.coll).miss()
+            obs_events.record(
+                "cache_miss", coll=sched.coll, scope="schedule"
+            )
+        else:
+            self.telemetry.hits += 1
+            cache_state = "hit"
+            if collected:
+                span.set(cache="hit")
+            self.telemetry.meters(sched.coll).hit()
+
+        timed = axis_name is None or mesh is not None
+        device = self.device if mesh is None else mesh.device
+        if desc.coll_type == CollType.BARRIER:
+            if mesh is not None and x is None:
+                x = torch.zeros((desc.comm_size,), device=device)
+        elif timed:
+            self._validate_payload(desc, x, device)
+        return sched, cache_state, timed, device, x
 
     def profile_offload(
         self,
@@ -794,6 +924,7 @@ class OffloadEngine:
         self._fp_memo.clear()
         self._plans.clear()
         self._backend_memo.clear()
+        self._prepared.clear()
         self.telemetry.cache_size = 0
         self.telemetry.cache_clears += 1
 

@@ -67,8 +67,9 @@ def test_sim_dispatch_counts_each_engine_span_once():
     assert added(before, counts()) == {**{n: 1 for n in ENGINE_SPANS},
                                        "engine.compile": 1}
     before = counts()
-    out = eng.offload(words, x)
-    assert added(before, counts()) == {n: 1 for n in ENGINE_SPANS}
+    out = eng.offload(words, x)  # a repeat: a prepared dispatch
+    assert added(before, counts()) == {**{n: 1 for n in ENGINE_SPANS},
+                                       "engine.reuse": 1}
     assert torch.equal(out, torch.cumsum(x, 0))
     before = counts()
     with profile(activities=[ProfilerActivity.CPU]):
@@ -88,7 +89,9 @@ def test_profiled_dispatch_nests_its_spans_as_ranges(tmp_path):
               and e["name"].startswith("engine.")]
     (outer,) = [e for e in events if e["name"] == "engine.offload"]
     inner = sorted((e for e in events if e is not outer), key=lambda e: e["ts"])
-    assert [e["name"] for e in inner] == list(ENGINE_SPANS[1:])
+    # a repeat: the prepared dispatch's engine.reuse inside engine.prepare
+    assert [e["name"] for e in inner] == [ENGINE_SPANS[1], "engine.reuse",
+                                          *ENGINE_SPANS[2:]]
     for e in inner:
         assert outer["ts"] <= e["ts"]
         assert e["ts"] + e["dur"] <= outer["ts"] + outer["dur"]
