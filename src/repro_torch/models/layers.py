@@ -137,10 +137,20 @@ def layernorm(p: "Norm", x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p.scale.float() + p.bias.float()).to(dt)
 
 
-def norm(p: "Norm", x: torch.Tensor, kind: str = "rmsnorm") -> torch.Tensor:
+def norm(p: "Norm", x: torch.Tensor, kind: str = "rmsnorm",
+         eps: Optional[float] = None) -> torch.Tensor:
+    """RMSNorm or LayerNorm, at each one's default eps unless ``eps``
+    names another."""
     if kind == "rmsnorm":
-        return rmsnorm(p.scale, x)
-    return layernorm(p, x)
+        return rmsnorm(p.scale, x) if eps is None else rmsnorm(p.scale, x, eps)
+    return layernorm(p, x) if eps is None else layernorm(p, x, eps)
+
+
+def attention_scale(cfg, head_dim: int) -> float:
+    """The score scale: the configuration's ``attention_multiplier`` where
+    it sets one, else ``1 / sqrt(head_dim)``."""
+    mult = getattr(cfg, "attention_multiplier", None)
+    return 1.0 / math.sqrt(head_dim) if mult is None else float(mult)
 
 
 class Norm(nn.Module):
@@ -286,6 +296,7 @@ def flash_attention(
     q_offset: int = 0,
     q_block: int = 1024,
     kv_block: int = 1024,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Memory-safe blocked attention: an online softmax over KV blocks.
 
@@ -293,7 +304,7 @@ def flash_attention(
     masks keys older than ``window`` positions (sliding-window attention).
     ``q_offset`` is the absolute position of q[0]. The reference's
     ``seq_shard`` (query blocks sharded over a mesh axis) is a mesh path,
-    not ported.
+    not ported. ``scale`` multiplies the scores (None: ``1 / sqrt(D)``).
     """
     window = int(window)
     B, Sq, H, D = q.shape
@@ -307,7 +318,7 @@ def flash_attention(
     qp = F.pad(q, (0, 0, 0, 0, 0, nq * q_block - Sq))
     kp = F.pad(k, (0, 0, 0, 0, 0, nk * kv_block - Sk))
     vp = F.pad(v, (0, 0, 0, 0, 0, nk * kv_block - Sk))
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     qp = (qp * scale).reshape(B, nq, q_block, Kh, G, D)
     kp = kp.reshape(B, nk, kv_block, Kh, D)
     vp = vp.reshape(B, nk, kv_block, Kh, D)
@@ -390,6 +401,7 @@ def attention_block(
     out = flash_attention(
         q, k, v, causal=causal, window=window,
         kv_block=perf_flags.FLAGS.attn_kv_block,
+        scale=attention_scale(cfg, q.shape[-1]),
     )
     if explicit:
         out = explicit_tp_wo(out, p.wo, topo)
@@ -441,8 +453,7 @@ def decode_attention(
         v_cache = _write_row(v_cache, v, cache_len)
     H = cfg.num_heads
     G = H // Kh
-    scale = 1.0 / math.sqrt(D)
-    qh = (q * scale).reshape(B, Kh, G, D)
+    qh = (q * attention_scale(cfg, D)).reshape(B, Kh, G, D)
     s = einsum_f32("bhgd,bshd->bhgs", qh, k_cache)
     kpos = torch.arange(S_max, device=x.device)
     valid = kpos <= cache_len
@@ -544,8 +555,7 @@ def seq_sharded_decode_attention_core(
 
     H = cfg.num_heads
     G = H // Kh
-    scale = 1.0 / math.sqrt(D)
-    qh = (q * scale).reshape(R, B, Kh, G, D)
+    qh = (q * attention_scale(cfg, D)).reshape(R, B, Kh, G, D)
     s = einsum_f32("rbhgd,rbshd->rbhgs", qh, k_cache)
     valid = (kpos <= cache_len) & _window_mask(cache_len - kpos, int(window))
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)

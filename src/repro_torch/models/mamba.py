@@ -96,10 +96,16 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _gated_rmsnorm(scale: torch.Tensor, y: torch.Tensor,
-                   z: torch.Tensor) -> torch.Tensor:
+                   z: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     yf = y.float() * F.silu(z.float())
     var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
-    return (yf * torch.rsqrt(var + 1e-6) * (1.0 + scale.float())).to(y.dtype)
+    return (yf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(y.dtype)
+
+
+def _norm_eps(cfg) -> float:
+    """The gated norm's eps: the configuration's ``norm_eps`` where it
+    sets one."""
+    return getattr(cfg, "norm_eps", 1e-6)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -271,7 +277,7 @@ def _mixer_core(p: MambaMixer, x: torch.Tensor, cfg, halo_x, state_in,
 
     y = y + p.D[None, None, :, None].to(y.dtype) * xs.to(y.dtype)
     y = y.reshape(B, S, di)
-    y = _gated_rmsnorm(p.norm_scale, y.to(x.dtype), z)
+    y = _gated_rmsnorm(p.norm_scale, y.to(x.dtype), z, _norm_eps(cfg))
     out = einsum("bse,ed->bsd", y, p.w_out).to(x.dtype)
     if tp:
         out = shard(out, "batch", None, None)
@@ -400,6 +406,6 @@ def mamba_decode(
     y = torch.einsum("bhpn,bn->bhp", h, Cc.float())
     y = y + p.D[None, :, None] * xs.float()
     y = y.reshape(B, 1, di).to(x.dtype)
-    y = _gated_rmsnorm(p.norm_scale, y, z)
+    y = _gated_rmsnorm(p.norm_scale, y, z, _norm_eps(cfg))
     out = einsum("bse,ed->bsd", y, p.w_out).to(x.dtype)
     return out, {"ssm": h, "conv_x": ext_x[:, 1:], "conv_bc": ext_bc[:, 1:]}

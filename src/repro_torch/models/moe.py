@@ -14,6 +14,19 @@ back -> the weighted combine, a sum over the k picks taken in order.
 token, masked by the router's top-k combine weights. It runs without a
 mesh, on one rank, and when the experts do not divide the model axis.
 
+``_routed_moe`` is the port's dropless routed path for one rank, which a
+configuration selects with ``moe_routed`` (Granite 4.0-H): router top-k ->
+per-expert counts -> the offsets by the exclusive prefix scan (K3) -> a
+stable sort of the picks by expert and a gather into expert-contiguous rows
+-> the gated expert FFN as grouped GEMMs over those offsets
+(``torch._grouped_mm``, the group ends read on the device) -> the
+gate-weighted combine, one reduction over each token's k picks. No pick is
+dropped and no count is read on the host. Its spans: ``moe.block`` around
+``moe.route`` (router to sort), ``moe.experts`` and ``moe.combine`` (with
+the shared MLP); its series: the counter ``repro_moe_picks_total`` and the
+gauge ``repro_moe_expert_picks_max``, the most picks one expert took in the
+last call, read from the card at a scrape.
+
 The aux losses of the EP region are globally exact: the sufficient
 statistics are pmean'd over (dp..., model) first.
 
@@ -37,6 +50,8 @@ from repro_torch import compat
 from repro_torch.compat import P
 from repro_torch.kernels.ops import prefix_scan
 from repro_torch.models.layers import _ACT, MLP, einsum, param
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.sharding import current_topology
 
 
@@ -130,6 +145,70 @@ def _dense_moe(p: MoE, x: torch.Tensor, cfg, act: str):
     return out, {"load_balance": lb, "router_z": z}
 
 
+#: the last routed call's largest per-expert count, a 0-d tensor left on
+#: its device until a scrape reads it
+_last_picks_max = [None]
+
+
+def _publish(registry: obs_metrics.MetricsRegistry) -> None:
+    registry.callback_gauge(
+        "repro_moe_expert_picks_max",
+        "the most picks one expert took in the last routed MoE call", (),
+        lambda: ({} if _last_picks_max[0] is None
+                 else {(): float(_last_picks_max[0])}))
+
+
+obs_metrics.add_process_series(_publish)
+
+
+def _grouped_ffn(p, rows: torch.Tensor, ends: torch.Tensor, act: str) -> torch.Tensor:
+    """The gated expert FFN over expert-contiguous ``rows`` (m, d): rows
+    ``ends[e - 1]:ends[e]`` go through expert ``e``. Grouped GEMMs that read
+    the group ends (int32) on the device."""
+    h = (_ACT[act](torch._grouped_mm(rows, p.w_gate, offs=ends))
+         * torch._grouped_mm(rows, p.w_in, offs=ends))
+    return torch._grouped_mm(h, p.w_out, offs=ends)
+
+
+def _routed_moe(p: MoE, x: torch.Tensor, cfg, act: str):
+    """Dropless routed path on one rank: each token's k picks go through
+    their experts alone (the module docstring)."""
+    B, S, d = x.shape
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+    n = B * S
+    dev = x.device
+    with obs_tracing.span("moe.block", "moe"):
+        with obs_tracing.span("moe.route", "moe"):
+            xf = x.reshape(n, d)
+            logits = (xf.float() @ p.router).float()
+            gates, experts, probs = _router(logits, k)
+            lb, z = _aux_losses(probs, experts, E, logits)
+            flat_e = experts.reshape(-1)                   # (n k,), token-major
+            counts = torch.zeros(E, dtype=torch.int32, device=dev).scatter_add_(
+                0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
+            # per-expert offsets: THE PAPER'S PRIMITIVE -- exclusive prefix scan,
+            # each expert's first row, as the EP region takes its bucket bases;
+            # the grouped GEMMs read each group's end, its base plus its count
+            ends = prefix_scan(counts, op="add", exclusive=True) + counts
+            order = torch.argsort(flat_e, stable=True)
+            rows = xf[order // k]
+        with obs_tracing.span("moe.experts", "moe"):
+            y = _grouped_ffn(p, rows, ends, act)
+        with obs_tracing.span("moe.combine", "moe"):
+            y = y * gates.reshape(-1)[order].to(y.dtype)[:, None]
+            got = torch.empty_like(y).index_copy_(0, order, y).reshape(n, k, d)
+            # one reduction over the k picks, accumulated in float32 and
+            # rounded once (a bf16 sum's accumulator is float32)
+            out = got.sum(1).reshape(B, S, d)
+            if p.shared is not None:
+                out = out + _shared_ffn(p.shared, x, act)
+        _last_picks_max[0] = counts.max()
+        obs_metrics.get_registry().counter(
+            "repro_moe_picks_total", "expert picks routed by the routed MoE"
+        ).inc(n * k)
+    return out, {"load_balance": lb, "router_z": z}
+
+
 def _ep_region(x, router, w_in, w_gate, w_out, *, cfg, act, axis, dp_axes):
     """Per-rank EP dispatch over ``R`` rank rows. x: (R, B_loc, S_loc, d);
     router (R, d, E); experts sharded, (R, E_loc, ...)."""
@@ -217,12 +296,15 @@ def token_spec(topo, B: int, S: int) -> P:
 
 
 def moe_block(p: MoE, x: torch.Tensor, cfg, *, act: str = "silu"):
-    """Top-level MoE FFN. Chooses EP (a block_shard_map region) or the dense
-    fallback."""
+    """Top-level MoE FFN. Chooses EP (a block_shard_map region) or, on one
+    rank, the routed path where the configuration asks for it, else the
+    dense fallback."""
     topo = current_topology()
     E = cfg.moe_num_experts
     ep = topo.model_size
     if topo.mesh is None or ep == 1 or E % ep != 0:
+        if getattr(cfg, "moe_routed", False):
+            return _routed_moe(p, x, cfg, act)
         return _dense_moe(p, x, cfg, act)
 
     axis = topo.model_axis

@@ -8,7 +8,14 @@ The reference stacks each family's layers into one pytree and runs them with
 * gemma3's 5:1 local:global attention — ``_layer_flags`` gives each layer's
   is-global flag and ``_window_for`` its sliding-window width;
 * jamba's 1-attention-per-8 + MoE-every-2 — ``periods`` is a list of
-  ``ModuleDict``s whose ``sub_<i>`` entries are the period's sublayers.
+  ``ModuleDict``s whose ``sub_<i>`` entries are the period's sublayers
+  (:func:`hybrid_layout`); a configuration with ``layer_types`` (Granite
+  4.0-H) puts its one attention layer at any index of the period and an
+  FFN block after every mixer.
+
+Configurations with HF Granite's multipliers (``embedding_multiplier``,
+``residual_multiplier``, ``logits_scaling``) and ``norm_eps`` apply them;
+where a configuration has none, or one of 1, no op is added.
 
 Module and parameter names are the reference's pytree keys, layer index
 inserted: the reference's ``params["blocks"]["attn"]["wq"][3]`` is the port's
@@ -66,6 +73,46 @@ def _block_out(fn, *args):
     return fn(*args)
 
 
+def _norm(p: L.Norm, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The configuration's norm, at its ``norm_eps`` where it sets one."""
+    return L.norm(p, x, cfg.norm, getattr(cfg, "norm_eps", None))
+
+
+def _scaled(x: torch.Tensor, cfg, name: str) -> torch.Tensor:
+    """``x`` times the configuration's multiplier ``name``; no op where it
+    has none or it is 1."""
+    mult = getattr(cfg, name, 1.0)
+    return x if mult == 1.0 else x * mult
+
+
+def _residual(x: torch.Tensor, out: torch.Tensor, cfg) -> torch.Tensor:
+    """``x + residual_multiplier * out``."""
+    return x + _scaled(out, cfg, "residual_multiplier")
+
+
+def hybrid_layout(cfg) -> Tuple[Tuple[str, bool], ...]:
+    """``(kind, use_moe)`` of each sublayer of a hybrid period: from the
+    configuration's ``layer_types`` where it has them (every period alike,
+    one attention layer in each, an FFN block after every mixer), else the
+    reference's attention at index 0 and an MoE at every ``i % moe_every
+    == 1``."""
+    period = cfg.attn_every or 8
+    moe = cfg.moe_num_experts > 0
+    types = tuple(getattr(cfg, "layer_types", ())[:cfg.num_layers])
+    if not types:
+        return tuple(("attn" if i == 0 else "mamba", moe and i % cfg.moe_every == 1)
+                     for i in range(period))
+    first = types[:period]
+    if (len(types) != cfg.num_layers or cfg.num_layers % period
+            or types != first * (cfg.num_layers // period)
+            or first.count("attention") != 1
+            or set(first) != {"attention", "mamba"}):
+        raise ValueError(
+            f"layer_types must repeat one period of {period} layers holding one "
+            f"attention layer, over {cfg.num_layers} layers: {types}")
+    return tuple(("attn" if t == "attention" else "mamba", moe) for t in first)
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -109,13 +156,11 @@ class LM(nn.Module):
                         else param(gen, (d, Vp), 1.0 / math.sqrt(d), dtype, device))
         self.blocks = self.periods = None
         if cfg.family == "hybrid":
-            period = cfg.attn_every or 8
+            layout = hybrid_layout(cfg)
             self.periods = nn.ModuleList()
-            for _ in range(cfg.num_layers // period):
+            for _ in range(cfg.num_layers // len(layout)):
                 sub = nn.ModuleDict()
-                for i in range(period):
-                    kind = "attn" if i == 0 else "mamba"
-                    use_moe = cfg.moe_num_experts > 0 and (i % cfg.moe_every == 1)
+                for i, (kind, use_moe) in enumerate(layout):
                     sub[f"sub_{i}"] = Block(gen, cfg, kind, use_moe, dtype, device)
                 self.periods.append(sub)
             return
@@ -178,37 +223,42 @@ def _maybe_ffn(p: Block, x: torch.Tensor, cfg):
     if p.moe is None and p.mlp is None:
         return x, _zero(x.device), _zero(x.device)
     f, lb, z = _block_out(
-        lambda x: _ffn(p, L.norm(p.norm2, x, cfg.norm), cfg), x)
-    return x + f, lb, z
+        lambda x: _ffn(p, _norm(p.norm2, x, cfg), cfg), x)
+    return _residual(x, f, cfg), lb, z
 
 
 def _attn_block_fwd(p, x, positions, cfg, window, positions3=None,
                     causal=True, collect=False):
     a = _block_out(lambda x: L.attention_block(
-        p.attn, L.norm(p.norm1, x, cfg.norm), positions, cfg,
+        p.attn, _norm(p.norm1, x, cfg), positions, cfg,
         causal=causal, window=window, positions3=positions3,
         return_kv=collect,
     ), x)
     kv = None
     if collect:
         a, kv = a
-    x = x + a
+    x = _residual(x, a, cfg)
     x, lb, z = _maybe_ffn(p, x, cfg)
     return x, lb, z, kv
 
 
 def _mamba_block_fwd(p, x, cfg, seq_parallel):
     a, cache = _block_out(lambda x: M.mamba_mixer(
-        p.mamba, L.norm(p.norm1, x, cfg.norm), cfg,
+        p.mamba, _norm(p.norm1, x, cfg), cfg,
         seq_parallel=seq_parallel), x)
-    x = x + a
+    x = _residual(x, a, cfg)
     x, lb, z = _maybe_ffn(p, x, cfg)
     return x, lb, z, cache
 
 
 def _logits(model: LM, x: torch.Tensor, cfg) -> torch.Tensor:
-    x = L.norm(model.final_norm, x, cfg.norm)
+    x = _norm(model.final_norm, x, cfg)
     head = model.lm_head if model.lm_head is not None else model.embed.T
+    # logits / logits_scaling, applied to the (B, S, d) input of the head
+    # rather than to the (B, S, V) logits
+    scaling = getattr(cfg, "logits_scaling", 1.0)
+    if scaling != 1.0:
+        x = x / scaling
     return einsum("bsd,dv->bsv", x, head)
 
 
@@ -229,7 +279,7 @@ def lm_forward(
     """tokens (B, S) -> logits (B, S, Vp). Returns (logits, aux), and the
     stacked caches with ``collect_cache``."""
     B, S = tokens.shape
-    x = model.embed[tokens]
+    x = _scaled(model.embed[tokens], cfg, "embedding_multiplier")
     if vision_embeds is not None:
         nv = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
@@ -241,15 +291,16 @@ def lm_forward(
 
     caches = None
     if cfg.family == "hybrid":
+        layout = hybrid_layout(cfg)
         per_period = []
         for pp in model.periods:
             def period_fwd(x, pp=pp):
                 lbs, zs = _zero(x.device), _zero(x.device)
                 kv = None
                 mcaches = []
-                for i, sk in enumerate(_sub_keys(pp)):
+                for (kind, _), sk in zip(layout, _sub_keys(pp)):
                     p = pp[sk]
-                    if i == 0:
+                    if kind == "attn":
                         x, lb, z, kv = _attn_block_fwd(
                             p, x, positions, cfg, cfg.sliding_window,
                             collect=collect_cache,
@@ -339,7 +390,7 @@ def init_decode_cache(cfg, batch: int, seq_len: int, topo=None,
         return {"mamba": tree_map(
             lambda a: zeros(cfg.num_layers, *a.shape, dtype=a.dtype), state)}
     if cfg.family == "hybrid":
-        period = cfg.attn_every or 8
+        period = len(hybrid_layout(cfg))
         n_p = cfg.num_layers // period
         state = M.init_mamba_state(cfg, batch, device=device)
         return {
@@ -376,36 +427,38 @@ def lm_decode_step(
     cache handed in is left as it was."""
     kv_mode = L.decode_kv_mode(cfg)
     cache_len = int(cache_len)
-    x = model.embed[token]
+    x = _scaled(model.embed[token], cfg, "embedding_multiplier")
 
     if cfg.family == "ssm":
         states = []
         for li, p in enumerate(model.blocks):
             st = tree_map(lambda a, li=li: a[li], cache["mamba"])
-            h = L.norm(p.norm1, x, cfg.norm)
+            h = _norm(p.norm1, x, cfg)
             a, st = M.mamba_decode(p.mamba, h, st, cfg)
-            x = x + a
+            x = _residual(x, a, cfg)
             x, _, _ = _maybe_ffn(p, x, cfg)
             states.append(st)
         new_cache = {"mamba": _stack(states)}
     elif cfg.family == "hybrid":
+        layout = hybrid_layout(cfg)
         nks, nvs, nms = [], [], []
         for pi, pp in enumerate(model.periods):
             kc, vc = cache["k"][pi], cache["v"][pi]
             mstates = tree_map(lambda a, pi=pi: a[pi], cache["mamba"])
             new_m = []
-            for i, sk in enumerate(_sub_keys(pp)):
+            for (kind, _), sk in zip(layout, _sub_keys(pp)):
                 p = pp[sk]
-                h = L.norm(p.norm1, x, cfg.norm)
-                if i == 0:
+                h = _norm(p.norm1, x, cfg)
+                if kind == "attn":
                     a, kc, vc = L.cached_attention(
                         p.attn, h, kc, vc, cache_len, cfg, kv_mode=kv_mode
                     )
                 else:
-                    st = tree_map(lambda a, i=i: a[i - 1], mstates)
+                    j = len(new_m)
+                    st = tree_map(lambda a, j=j: a[j], mstates)
                     a, st = M.mamba_decode(p.mamba, h, st, cfg)
                     new_m.append(st)
-                x = x + a
+                x = _residual(x, a, cfg)
                 x, _, _ = _maybe_ffn(p, x, cfg)
             nks.append(kc)
             nvs.append(vc)
@@ -416,13 +469,13 @@ def lm_decode_step(
         flags = _layer_flags(cfg)
         nks, nvs = [], []
         for li, (p, flag) in enumerate(zip(model.blocks, flags.tolist())):
-            h = L.norm(p.norm1, x, cfg.norm)
+            h = _norm(p.norm1, x, cfg)
             window = _window_for(cfg, flag)
             a, kc, vc = L.cached_attention(
                 p.attn, h, cache["k"][li], cache["v"][li], cache_len, cfg,
                 window=window, kv_mode=kv_mode,
             )
-            x = x + a
+            x = _residual(x, a, cfg)
             x, _, _ = _maybe_ffn(p, x, cfg)
             nks.append(kc)
             nvs.append(vc)

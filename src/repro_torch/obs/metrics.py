@@ -41,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 __all__ = [
     "CallbackCounter",
+    "CallbackGauge",
     "Counter",
     "Gauge",
     "Histogram",
@@ -200,6 +201,21 @@ class Gauge(_Metric):
         ]
 
 
+class CallbackGauge(_Metric):
+    """A gauge whose value is kept elsewhere and read at every scrape:
+    ``fn() -> {label values: value}`` (a value the hot path cannot read
+    without waiting, such as a number still on the card)."""
+
+    kind = "gauge"
+
+    def __init__(self, name, help="", labelnames=(), *, fn: Callable[[], Dict]):
+        super().__init__(name, help, labelnames)
+        self._fn = fn
+
+    collect = CallbackCounter.collect
+    render = Gauge.render
+
+
 class Histogram(_Metric):
     """Cumulative-bucket histogram (Prometheus semantics: ``le`` buckets
     are cumulative, ``+Inf`` == count)."""
@@ -337,6 +353,13 @@ class MetricsRegistry:
     ) -> CallbackCounter:
         return self._get_or_create(
             CallbackCounter, name, help, labelnames, fn=fn
+        )
+
+    def callback_gauge(
+        self, name, help, labelnames, fn: Callable[[], Dict],
+    ) -> CallbackGauge:
+        return self._get_or_create(
+            CallbackGauge, name, help, labelnames, fn=fn
         )
 
     def metrics(self) -> Dict[str, _Metric]:
