@@ -24,7 +24,11 @@ non-zero without printing a result:
               its decode, tensor-core and float32 paths in float32, bf16 and
               fp16, each output row also held to a limit relative to its
               norm, and the launches each call reports having made (counted
-              in C after each launch) held to ``plan_launch``'s; K3 on each
+              in C after each launch) held to ``plan_launch``'s; the model
+              path's K5 route (``layers.flash_attention``) at Granite's
+              prefill attention (B 2, S 16384, 32 query heads over 8 KV
+              heads, D 128, causal, scale 1/128), one launch, every row
+              against the plain version; K3 on each
               of its rows, tiles and lookback paths at both vector widths
               (L = 1, 2, 3, a multiple of the vector +- 1, int8 at L = 17,
               (4, 2^22)), inclusive, exclusive and back to front, one launch
@@ -1424,6 +1428,81 @@ K3_HALF_SHAPES = ((3, 257), (9, 17), (9, 32), (1, 70000))
 K3_LONG = (4, 1 << 22)
 
 
+#: Granite-4.0-H-Small's attention layer at the benchmark's prefill: (B, S,
+#: H, Kh, D), causal, scores scaled by its ``attention_multiplier``
+GRANITE_ATTN = (2, 16384, 32, 8, 128)
+GRANITE_ATTN_SCALE = 1.0 / 128
+#: query heads a plain-version call takes (4 heads of 16384 x 16384 float32
+#: scores: 4.3 GB, about 17 GB with the mask fill and the softmax)
+GRANITE_REF_HEADS = 4
+
+
+def onchip_granite_attention(torch, device, check, worst_row):
+    """``layers.flash_attention`` at Granite's prefill shape in bf16, under
+    ``inference_mode``: the K5 route (one launch, K5's count zeroed right
+    before), held against ``ref_flash_attention(scale=)`` over every (B H)
+    row, ``GRANITE_REF_HEADS`` rows a call. The plain version's KV heads are
+    expanded by ``repeat_interleave`` (query head ``h`` reads KV head
+    ``h // G``), apart from the route's own expansion. The same rows at
+    the default ``1 / sqrt(D)`` must fail the row limit: the comparison
+    tells the scale apart."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers
+
+    k5 = kernel_modules()["k5"]
+    B, S, H, Kh, D = GRANITE_ATTN
+    G = H // Kh
+    gen = torch.Generator(device=device)
+    gen.manual_seed(31)
+    dtype = torch.bfloat16
+    q = torch.randn((B, S, H, D), generator=gen, device=device).to(dtype)
+    k = torch.randn((B, S, Kh, D), generator=gen, device=device).to(dtype)
+    v = torch.randn((B, S, Kh, D), generator=gen, device=device).to(dtype)
+    what = f"K5 route Granite (B, S, H, Kh, D) = {GRANITE_ATTN} causal " \
+           f"scale 1/128"
+    torch.cuda.synchronize()
+    k5.launches = 0
+    with torch.inference_mode():
+        got = layers.flash_attention(q, k, v, causal=True,
+                                     scale=GRANITE_ATTN_SCALE)
+    launched = k5.launches
+    torch.cuda.synchronize()
+    if got.shape != q.shape or got.dtype != dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)}/{got.dtype}")
+
+    def rows(t, heads):  # (B, S, heads, D) -> (B heads, S, D)
+        return t.transpose(1, 2).reshape(B * heads, S, D)
+
+    got_r = rows(got, H)
+    q_r = rows(q, H)
+    k_r = rows(k.repeat_interleave(G, dim=2), H)
+    v_r = rows(v.repeat_interleave(G, dim=2), H)
+    rtol, atol = FLASH_TOL["bfloat16"]
+    row_err = 0.0
+    for lo in range(0, B * H, GRANITE_REF_HEADS):
+        sl = slice(lo, lo + GRANITE_REF_HEADS)
+        want = ref.ref_flash_attention(q_r[sl], k_r[sl], v_r[sl], causal=True,
+                                       scale=GRANITE_ATTN_SCALE)
+        check("k5:route:granite", got_r[sl], want, rtol, atol,
+              f"{what} rows {lo}..", launched)
+        row_err = max(row_err, check_rows(torch, got_r[sl], want, dtype,
+                                          f"{what} rows {lo}.."))
+        del want
+    worst_row["k5:route:granite"] = row_err
+    sl = slice(0, GRANITE_REF_HEADS)
+    unscaled = ref.ref_flash_attention(q_r[sl], k_r[sl], v_r[sl], causal=True)
+    default_scale_err = row_rel_err(torch, got_r[sl], unscaled)
+    if not default_scale_err > FLASH_ROW_TOL["bfloat16"]:
+        raise AssertionError(f"{what}: the default scale's rows are within "
+                             f"the limit ({default_scale_err}): the check "
+                             "cannot tell the scale")
+    del got, got_r, q_r, k_r, v_r, unscaled
+    torch.cuda.empty_cache()
+    return {"shape": list(GRANITE_ATTN), "scale": GRANITE_ATTN_SCALE,
+            "launches": launched, "row_rel_err": row_err,
+            "default_scale_row_rel_err": default_scale_err}
+
+
 def onchip_k3(torch, device, check):
     """K3 through ``ops.prefix_scan`` (and ``scan_rows(reverse=True)``) on
     every path and vector width, one launch a call; returns the cases, the
@@ -1603,9 +1682,12 @@ def phase_onchip(torch, device):
             worst_row[key] = max(worst_row.get(key, 0.0),
                                  check_rows(torch, got, want, dtype, what))
             cases += 1
+    granite = onchip_granite_attention(torch, device, check, worst_row)
+    cases += 1
     emit({
         "phase": "onchip", "cases": cases, "max_abs_err": worst,
-        "k5_row_rel_err": worst_row, "k4_path_launches": k4_paths,
+        "k5_row_rel_err": worst_row, "k5_route_granite": granite,
+        "k4_path_launches": k4_paths,
         "k3_path_launches": k3_paths, "k3_variants": k3_variants,
         "k3_long_row": k3_long,
         "tolerances": {
@@ -3494,7 +3576,7 @@ def times_serve_model(torch, device, arch, smi, mesh=None):
         api.prefill(model, {"tokens": prompt})   # warm-up
         _, pf, pf_counts = profiled(
             torch, lambda: api.prefill(model, {"tokens": prompt}),
-            ("k3_scan_kernel",))
+            ("k3_scan_kernel", "k5_flash_kernel"))
 
     def decode_steps():
         for _ in range(8):
@@ -3513,6 +3595,9 @@ def times_serve_model(torch, device, arch, smi, mesh=None):
     if cfg.family == "ssm":
         line["k3_device_ms_per_prefill"] = None if pf is None else pf["k3_scan_kernel"]
         line["k3_launches_profiled"] = pf_counts["k3_scan_kernel"]
+    else:  # the prefill's attention on K5, where the route takes the prompt
+        line["k5_device_ms_per_prefill"] = None if pf is None else pf["k5_flash_kernel"]
+        line["k5_launches_profiled"] = pf_counts["k5_flash_kernel"]
     del eng, model
     torch.cuda.empty_cache()
     emit(line)
@@ -4198,12 +4283,14 @@ def mesh_serve(torch, device, smi, mods):
         for r in reqs:
             eng.submit(r)
         torch.cuda.synchronize()
+        mods["k5"].launches = 0
         t0 = time.perf_counter()
         eng.run_until_drained()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         tokens = sum(len(r.generated) for r in reqs)
         runs[name] = {
+            "k5_launches": mods["k5"].launches,
             "tokens": [list(r.generated) for r in reqs], "logits": logits,
             "tokens_per_s": tokens / wall_s, "wall_s": wall_s,
             "decode_step_ms_median": statistics.median(timed.decode_ms),
@@ -4237,7 +4324,8 @@ def mesh_serve(torch, device, smi, mods):
             "min_margin": min_margin,
             "logits_gap_where_tokens_agree": gap, "largest_logit": scale,
             **{f"{k}_{name}": runs[name][k] for name in runs
-               for k in ("tokens_per_s", "decode_step_ms_median", "decode_steps")},
+               for k in ("tokens_per_s", "decode_step_ms_median", "decode_steps",
+                         "k5_launches")},
             "card": smi, "ok": True}
     emit(line)
     del model

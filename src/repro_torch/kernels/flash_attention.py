@@ -17,7 +17,8 @@ launches the kernels of ``csrc/flash_attention.cu`` on the path that
   float32.
 
 :data:`launches` counts the kernel launches that the C entry point reports
-having made (each counted once ``cudaGetLastError()`` passed it).
+having made (each counted once ``cudaGetLastError()`` passed it). Each call
+of :func:`attention` is one ``k5.call`` span (:mod:`repro_torch.obs.tracing`).
 """
 
 from __future__ import annotations
@@ -25,12 +26,13 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ref_flash_attention
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.roofline.op_cost import charged
 
 #: kernel launches since import (the main path's proof that it ran K5)
@@ -166,15 +168,18 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _launch(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-    window: int, q_offset: int, entry=None,
+    window: int, q_offset: int, scale: Optional[float] = None, entry=None,
 ) -> torch.Tensor:
     """Run the planned kernels through ``entry`` (default: the library
-    built from ``csrc``; another build's :func:`bind` for a comparison)."""
+    built from ``csrc``; another build's :func:`bind` for a comparison);
+    the scores are ``(q . k) * scale`` (None: ``1 / sqrt(D)``)."""
     global launches
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("the flash kernels need q, k and v of one dtype")
     BH, Sq, D = q.shape
     Skv = k.shape[1]
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
     plan = plan_launch(BH, Sq, Skv, D, q.dtype, causal=causal, window=window,
                        q_offset=q_offset)
     if plan.path == "simt" and BH > _MAX_BH:
@@ -196,7 +201,7 @@ def _launch(
         rc = entry(
             _DTYPE_CODES[q.dtype], _PATH_CODES[plan.path], q.data_ptr(),
             k.data_ptr(), v.data_ptr(), o.data_ptr(), work.data_ptr(), BH, Sq,
-            Skv, D, int(causal), int(window), int(q_offset), 1.0 / (D ** 0.5),
+            Skv, D, int(causal), int(window), int(q_offset), scale,
             plan.key_lo, plan.split_len, plan.splits, stream, ctypes.byref(made),
         )
     launches += made.value
@@ -212,11 +217,13 @@ def _launch(
 def attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: int = 0, q_offset: int = 0,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Attention of ``(BH, Sq, D)`` queries over ``(BH, Skv, D)`` keys and
-    values: the plain version for CPU (or ``meta``) tensors, the CUDA
-    kernels for CUDA tensors (no fallback between the two). Under a
-    ``CostMode`` a call counts as one K5 charge at K5's own cost."""
+    values, the scores ``(q . k) * scale`` (None: ``1 / sqrt(D)``): the plain
+    version for CPU (or ``meta``) tensors, the CUDA kernels for CUDA tensors
+    (no fallback between the two). Under a ``CostMode`` a call counts as one
+    K5 charge at K5's own cost."""
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
         raise ValueError(
             f"expected (BH, Sq, D) q and matching (BH, Skv, D) k, v; got "
@@ -230,11 +237,11 @@ def attention(
         raise ValueError("q, k and v must share one device")
     if q.device.type not in ("cpu", "meta", "cuda"):
         raise ValueError(f"no flash kernel for device {q.device}")
-    with charged("k5", bh=q.shape[0], sq=q.shape[1], skv=k.shape[1],
-                 d=q.shape[2], dtype=q.dtype, causal=causal, window=window,
-                 q_offset=q_offset):
+    with obs_tracing.span("k5.call", "kernel"), charged(
+            "k5", bh=q.shape[0], sq=q.shape[1], skv=k.shape[1], d=q.shape[2],
+            dtype=q.dtype, causal=causal, window=window, q_offset=q_offset):
         if q.device.type != "cuda":
             return ref_flash_attention(q, k, v, causal=causal, window=window,
-                                       q_offset=q_offset)
+                                       q_offset=q_offset, scale=scale)
         return _launch(q, k, v, causal=causal, window=window,
-                       q_offset=q_offset)
+                       q_offset=q_offset, scale=scale)

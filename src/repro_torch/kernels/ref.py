@@ -133,12 +133,14 @@ def attention_mask(
 def ref_flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     *, causal: bool = True, window: int = 0, q_offset: int = 0,
-    kv_len: Optional[int] = None,
+    kv_len: Optional[int] = None, scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Plain softmax attention oracle for the flash kernel. (BH, S, D)."""
+    """Plain softmax attention oracle for the flash kernel. (BH, S, D); the
+    scores are ``(q . k) * scale`` (None: divided by ``sqrt(D)``)."""
     BH, Sq, D = q.shape
     _, Skv, _ = k.shape
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / (D ** 0.5)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float())
+    s = s / (D ** 0.5) if scale is None else s * scale
     mask = attention_mask(Sq, Skv, causal=causal, window=window,
                           q_offset=q_offset, kv_len=kv_len, device=q.device)
     s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))

@@ -14,10 +14,15 @@ Differences from the reference:
   :func:`repro_torch.compat.block_shard_map`; its placement constraints
   (``shard``) are the identity, so the mesh branches that are constraints
   only compute the local path;
-* ``flash_attention`` is the reference's own blocked attention in plain
-  PyTorch (the reference computes it in jnp, outside any Pallas kernel),
-  with its blocks, its ``-1e30`` mask fill and its ``1e-30`` clamp; its
-  ``seq_shard`` only places query blocks and is left out;
+* ``flash_attention`` runs a call that records no gradient, with bf16 or
+  fp16 operands of a head size K5 is built for and more than
+  ``DECODE_MAX_SQ`` query rows on the card, on K5's tensor-core path
+  (:func:`k5_takes`; the reference computes its attention in jnp, outside
+  any Pallas kernel); every other call (training, float32, the CPU, other
+  head sizes) takes the reference's own blocked attention in plain
+  PyTorch, with its blocks, its ``-1e30`` mask fill and its ``1e-30``
+  clamp. The reference's ``seq_shard`` only places query blocks and is left
+  out;
 * the reference's ``jax.checkpoint`` sites go through :func:`remat`
   (``torch.utils.checkpoint``, non-reentrant), which checkpoints only while
   grad is enabled: serving under ``torch.inference_mode()`` runs each body
@@ -33,6 +38,7 @@ Differences from the reference:
 from __future__ import annotations
 
 import functools
+import importlib
 import math
 from typing import Optional, Union
 
@@ -42,7 +48,11 @@ from torch import nn
 
 from repro_torch import compat, perf_flags
 from repro_torch.compat import P
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.sharding import current_topology, use_topology
+
+# the module (``repro_torch.kernels`` exports the function under its name)
+K5 = importlib.import_module("repro_torch.kernels.flash_attention")
 
 Device = Union[torch.device, str]
 
@@ -286,6 +296,39 @@ def _window_mask(delta: torch.Tensor, window: int) -> torch.Tensor:
     return torch.ones_like(delta, dtype=torch.bool)
 
 
+def k5_takes(device_type: str, dtype: Optional[torch.dtype], head_dim: int,
+             sq: int, records_grad: bool) -> bool:
+    """Whether :func:`flash_attention` runs a call on K5's tensor-core path:
+    operands on the card, all bf16 or all fp16 (``dtype`` None where they
+    differ), a head size K5 is built for, more query rows than its decode
+    path takes, and no autograd graph recorded (K5 has no backward)."""
+    return (device_type == "cuda"
+            and dtype in (torch.bfloat16, torch.float16)
+            and head_dim in K5.HEAD_DIMS
+            and sq > K5.DECODE_MAX_SQ
+            and not records_grad)
+
+
+def _k5_attention(q, k, v, *, causal: bool, window: int, q_offset: int,
+                  scale: float) -> torch.Tensor:
+    """``flash_attention`` on K5: ``(B, S, H, D)`` to K5's ``(B H, S, D)``,
+    each KV head copied to its ``G`` query heads (query head ``kh G + g``
+    reads KV head ``kh``, as the blocked path's ``(Kh, G)`` split does),
+    and the result back to ``(B, Sq, H, D)``, contiguous."""
+    B, Sq, H, D = q.shape
+    _, Sk, Kh, _ = k.shape
+    G = H // Kh
+
+    def heads(t):  # (B, Sk, Kh, D) -> (B H, Sk, D), one copy
+        return (t.transpose(1, 2)[:, :, None].expand(B, Kh, G, Sk, D)
+                .reshape(B * H, Sk, D))
+
+    o = K5.attention(q.transpose(1, 2).reshape(B * H, Sq, D), heads(k),
+                     heads(v), causal=causal, window=window,
+                     q_offset=q_offset, scale=scale)
+    return o.reshape(B, H, Sq, D).transpose(1, 2).contiguous()
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -298,18 +341,33 @@ def flash_attention(
     kv_block: int = 1024,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Memory-safe blocked attention: an online softmax over KV blocks.
+    """Attention of every query row, on K5 or as a memory-safe blocked
+    attention (an online softmax over KV blocks).
 
     q: (B, Sq, H, D); k/v: (B, Sk, Kh, D) with H = G*Kh (GQA). ``window`` > 0
     masks keys older than ``window`` positions (sliding-window attention).
     ``q_offset`` is the absolute position of q[0]. The reference's
     ``seq_shard`` (query blocks sharded over a mesh axis) is a mesh path,
     not ported. ``scale`` multiplies the scores (None: ``1 / sqrt(D)``).
+
+    A call that :func:`k5_takes` runs on K5's tensor-core path: the scores
+    accumulate in float32, the softmax is in float32, the probabilities
+    enter the PV product in q's type, and key tiles that no query row of a
+    tile sees are skipped. Every other call takes the blocked path, which
+    ``q_block``, ``kv_block`` and ``perf_flags``' ``attn_probs_bf16`` shape;
+    they do nothing on K5.
     """
     window = int(window)
     B, Sq, H, D = q.shape
     _, Sk, Kh, _ = k.shape
     G = H // Kh
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    dtype = q.dtype if k.dtype == v.dtype == q.dtype else None
+    records_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if k5_takes(q.device.type, dtype, D, Sq, records_grad):
+        return _k5_attention(q, k, v, causal=bool(causal), window=window,
+                             q_offset=int(q_offset), scale=scale)
     q_block = min(q_block, Sq)
     kv_block = min(kv_block, Sk)
     nq = -(-Sq // q_block)
@@ -318,7 +376,6 @@ def flash_attention(
     qp = F.pad(q, (0, 0, 0, 0, 0, nq * q_block - Sq))
     kp = F.pad(k, (0, 0, 0, 0, 0, nk * kv_block - Sk))
     vp = F.pad(v, (0, 0, 0, 0, 0, nk * kv_block - Sk))
-    scale = 1.0 / math.sqrt(D) if scale is None else scale
     qp = (qp * scale).reshape(B, nq, q_block, Kh, G, D)
     kp = kp.reshape(B, nk, kv_block, Kh, D)
     vp = vp.reshape(B, nk, kv_block, Kh, D)
@@ -378,38 +435,40 @@ def attention_block(
     positions3: Optional[torch.Tensor] = None,
     return_kv: bool = False,
 ):
-    """Full-sequence attention (train / prefill). Under a mesh with the
-    ``explicit_tp`` flag the projections run head-sharded with an owned
-    psum; otherwise the reference's mesh branches only place data.
+    """Full-sequence attention (train / prefill), one ``attn.block`` span.
+    Under a mesh with the ``explicit_tp`` flag the projections run
+    head-sharded with an owned psum; otherwise the reference's mesh branches
+    only place data.
 
     With return_kv=True also returns the (roped-k, v) pair for decode caches.
     """
-    topo = current_topology()
-    explicit = (not perf_flags.FLAGS.attn_seq_over_tp
-                and _tp_ready(topo, cfg.num_heads))
-    if explicit:
-        q, k, v = explicit_tp_qkv(p, x, xkv, topo)
-    else:
-        q, k, v = _qkv(p, x, xkv)
-    if xkv is None:  # self-attention: rotate both q and k
-        if positions3 is not None and cfg.mrope:
-            q = apply_mrope(q, positions3, cfg.rope_theta)
-            k = apply_mrope(k, positions3, cfg.rope_theta)
-        elif cfg.rope_theta > 0:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
-    out = flash_attention(
-        q, k, v, causal=causal, window=window,
-        kv_block=perf_flags.FLAGS.attn_kv_block,
-        scale=attention_scale(cfg, q.shape[-1]),
-    )
-    if explicit:
-        out = explicit_tp_wo(out, p.wo, topo)
-    else:
-        out = tp_out_einsum("bshk,hkd->bsd", out, p.wo)
-    if return_kv:
-        return out, (k, v)
-    return out
+    with obs_tracing.span("attn.block", "attn"):
+        topo = current_topology()
+        explicit = (not perf_flags.FLAGS.attn_seq_over_tp
+                    and _tp_ready(topo, cfg.num_heads))
+        if explicit:
+            q, k, v = explicit_tp_qkv(p, x, xkv, topo)
+        else:
+            q, k, v = _qkv(p, x, xkv)
+        if xkv is None:  # self-attention: rotate both q and k
+            if positions3 is not None and cfg.mrope:
+                q = apply_mrope(q, positions3, cfg.rope_theta)
+                k = apply_mrope(k, positions3, cfg.rope_theta)
+            elif cfg.rope_theta > 0:
+                q = apply_rope(q, positions, cfg.rope_theta)
+                k = apply_rope(k, positions, cfg.rope_theta)
+        out = flash_attention(
+            q, k, v, causal=causal, window=window,
+            kv_block=perf_flags.FLAGS.attn_kv_block,
+            scale=attention_scale(cfg, q.shape[-1]),
+        )
+        if explicit:
+            out = explicit_tp_wo(out, p.wo, topo)
+        else:
+            out = tp_out_einsum("bshk,hkd->bsd", out, p.wo)
+        if return_kv:
+            return out, (k, v)
+        return out
 
 
 def _write_row(cache: torch.Tensor, row: torch.Tensor, at: int) -> torch.Tensor:

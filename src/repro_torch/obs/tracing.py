@@ -25,10 +25,15 @@ host-side spans with explicit parent links. The span tree:
 
     step.train  ->  step.forward, step.backward, step.optimizer
     step.prefill
+    attn.block       one full-sequence attention layer (attention_block)
+      ->  k5.call                    (where its attention runs on K5)
     k3.call          one K3 segment-scan call, wherever it runs
+    k5.call          one K5 call (``kernels/flash_attention.py::attention``),
+                     wherever it runs
 
 Span categories (``cat``): ``service``, ``broker``, ``engine``, ``phase``,
-``round``, ``kernel`` (``k1.*``, ``k3.call``), ``step``, ``profile``, and —
+``round``, ``kernel`` (``k1.*``, ``k3.call``, ``k5.call``), ``step``,
+``attn``, ``profile``, and —
 in link-probe mode (``Tracer(link_probe=True)``, see
 :mod:`repro_torch.obs.health`) — ``link``, one span per (src, dst) message
 of a round.

@@ -43,6 +43,7 @@ class PerfFlags:
     scan_payload_bf16: bool = False
     attn_probs_bf16: bool = False   # exp(s-m) weights in bf16 for the PV matmul
     attn_kv_block: int = 1024       # flash KV block (bigger = fewer o-rescales)
+                                    # (both: the blocked attention only, not K5)
     tp_reduce_bf16: bool = False    # force bf16 payloads on TP all-reduces by
                                     # emitting bf16 dots for psum'd projections
     explicit_tp: bool = False       # run attention/MLP projections in
