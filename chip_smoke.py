@@ -292,6 +292,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
@@ -1373,7 +1374,7 @@ def onchip_k4(torch, device, check):
                 views.append(buf[1:].view(N, T, D).copy_(x))
             va, vb = views
             vec = k4.plan_launch(N, T, D, dtype, (va.data_ptr(), vb.data_ptr())).vec
-            if T >= 2 * k4.SHIPPED.chunk and (vec != 1 or k4.plan_launch(
+            if T >= 2 * k4.CHUNK and (vec != 1 or k4.plan_launch(
                     N, T, D, dtype, (a.data_ptr(), b.data_ptr())).vec == 1):
                 raise AssertionError(f"K4 {dtype} view: vector width {vec}")
             launch(va, vb, h0, f"{dtype} {(N, T, D)} view off alignment")
@@ -2897,8 +2898,8 @@ def paths_in_turns(torch, calls, iters):
     out = {n: {"ms": [], "event_ms": []} for n in names}
     for n in names + names[::-1]:
         fn, kernel = calls[n]
-        out[n]["ms"].append(device_ms(torch, fn, iters, name=kernel))
-        out[n]["event_ms"].append(time_ms(torch, fn, iters))
+        out[n]["ms"].append(profiled(torch, fn, iters, name=kernel).ms)
+        out[n]["event_ms"].append(event_ms(torch, fn, iters))
     return out
 
 
@@ -2913,8 +2914,8 @@ def compare_row(torch, key, coll, p, nb, x, times, library, card, iters):
         "kernel": key, "coll": coll, "p": p, "bytes_per_rank": nb,
         "paths": times,
         "library": "torch.cumsum(x, 0)" if coll == "SCAN" else "x.sum(0)",
-        "library_ms": device_ms(torch, library, iters),
-        "library_event_ms": time_ms(torch, library, iters),
+        "library_ms": profiled(torch, library, iters).ms,
+        "library_event_ms": event_ms(torch, library, iters),
         "bound_ms": bound_ms, "bound_by": "bytes",
         # from the faster turn whose trace held the kernels (a turn whose
         # three traces all missed activities reads null)
@@ -2981,14 +2982,14 @@ def phase_times_spmd(torch, device, card, launches):
         }, iters)
         row = compare_row(torch, "k2", coll, p, nb, x, times, library, card,
                           iters)
-        row["k1_ms"] = device_ms(torch, k1, iters, name=PATH_KERNELS["register"])
-        row["k1_event_ms"] = time_ms(torch, k1, iters)
+        row["k1_ms"] = profiled(torch, k1, iters, name=PATH_KERNELS["register"]).ms
+        row["k1_event_ms"] = event_ms(torch, k1, iters)
         row["max_abs_err"] = err
         if head is None:  # the headline: K2's plain version too
             plain = shard_map(spmd_plain(torch, plan, p, SUM), mesh, ("i",), "i")
             assert_match(torch, plain(x), want, 0.0, 0.0, "times K2 plain")
-            row["plain_ms"] = device_ms(torch, lambda: plain(x), 20)
-            row["plain_event_ms"] = time_ms(torch, lambda: plain(x), 20)
+            row["plain_ms"] = profiled(torch, lambda: plain(x), 20).ms
+            row["plain_event_ms"] = event_ms(torch, lambda: plain(x), 20)
             head = row
         emit({"phase": "times_spmd", **row})
         del x, kernel, flags
@@ -3042,8 +3043,14 @@ def phase_times_spmd(torch, device, card, launches):
     }
 
 
-def time_ms(torch, fn, iters):
-    for _ in range(3):
+# ---------------------------------------------------------------------------
+# the timers: CUDA events, a CUDA graph read by events, and the profiler
+
+def event_ms(torch, fn, iters=1, warmup=3):
+    """ms a call between CUDA events around ``iters`` back-to-back calls of
+    ``fn`` (host work included: near the device time where the host keeps
+    ahead), after ``warmup`` untimed ones."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -3056,34 +3063,74 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters, name=None):
-    """Device time per call from ``torch.profiler`` (CUPTI): the kernels
-    whose name contains ``name``, or every device activity when ``name`` is
-    None. CUPTI now and then returns a trace that misses activities: one
-    that holds no device time, or a count of them that is no multiple of
-    the ``iters`` identical calls, is taken again, up to three times in
-    all; None when none will do."""
+def graph_ms(torch, fn, calls=100, replays=5):
+    """ms a call between CUDA events around replays of one CUDA graph of
+    ``calls`` captured calls: the device's time with no host in it (each
+    captured call's output comes from the graph's memory pool)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = event_ms(torch, graph.replay, replays, warmup=1) / calls
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+class Profile(NamedTuple):
+    """What :func:`profiled` read."""
+
+    ms: Optional[float]  # device ms a call of the named kernels, or None
+    wall_ms: float       # host ms of the profiled calls
+    kernels: dict        # each kernel's (device ms, launches) over them
+
+
+def kernel_sum(kernels, name=None):
+    """(device ms, launches) of the kernels of a :class:`Profile` whose name
+    contains ``name`` (every device activity when None)."""
+    hits = [v for k, v in kernels.items() if name is None or name in k]
+    return sum(ms for ms, _ in hits), sum(n for _, n in hits)
+
+
+def profiled(torch, fn, iters=1, name=None, warmup=3):
+    """``iters`` calls of ``fn`` under ``torch.profiler`` (CUPTI, device
+    activity only), after ``warmup`` untimed ones: the device ms a call of
+    the kernels whose name contains ``name`` (every device activity when
+    None), the host wall ms of the profiled calls and each kernel's (device
+    ms, launches) over them by name. CUPTI now and then returns a trace
+    that misses activities: one that holds no device time of those kernels,
+    or a count of them that is no multiple of ``iters``, is taken again, up
+    to three times in all; ``ms`` is None and ``kernels`` empty when none
+    will do."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for _attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us, seen = 0.0, 0
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = {}
         for evt in prof.key_averages():
-            t = getattr(evt, "device_time_total", None)
-            if t is None:
-                t = getattr(evt, "cuda_time_total", 0.0)
-            if t > 0 and (name is None or name in evt.key):
-                total_us += t
-                seen += evt.count
-        if total_us > 0 and seen % iters == 0:
-            return total_us / iters / 1e3
-    return None
+            us = getattr(evt, "device_time_total", None)
+            if us is None:
+                us = getattr(evt, "cuda_time_total", 0.0)
+            if us > 0:
+                kernels[evt.key] = (us / 1e3, evt.count)
+        ms, seen = kernel_sum(kernels, name)
+        if ms > 0 and seen % iters == 0:
+            return Profile(ms / iters, wall_ms, kernels)
+    return Profile(None, wall_ms, {})
 
 
 def kernel_ident(key):
@@ -3128,14 +3175,14 @@ def phase_times(torch, device, card, launches):
         # per call, back to back: CUDA events (what a caller waits, host
         # overhead included) and the profiler's device time (the kernels)
         event = {
-            "ms": time_ms(torch, kernel, iters),
-            "plain_ms": time_ms(torch, plain, iters),
-            "library_ms": time_ms(torch, library, iters) if library else None,
+            "ms": event_ms(torch, kernel, iters),
+            "plain_ms": event_ms(torch, plain, iters),
+            "library_ms": event_ms(torch, library, iters) if library else None,
         }
         dev = {
-            "ms": device_ms(torch, kernel, iters, name=PATH_KERNELS["register"]),
-            "plain_ms": device_ms(torch, plain, iters),
-            "library_ms": device_ms(torch, library, iters) if library else None,
+            "ms": profiled(torch, kernel, iters, name=PATH_KERNELS["register"]).ms,
+            "plain_ms": profiled(torch, plain, iters).ms,
+            "library_ms": profiled(torch, library, iters).ms if library else None,
         }
         # the end-to-end metric: the engine's own dispatch latency (host
         # clock bracketed by synchronize), median of repeat dispatches
@@ -3207,8 +3254,6 @@ def phase_times(torch, device, card, launches):
 def phase_times_onchip(torch, card, launches, cases):
     """K3-K5 rows at the entry shapes; returns their kernels-line entries,
     each from its kernel's headline row."""
-    from repro_torch.testing.k3_ablation import graph_us
-
     rows = []
     for case in cases:
         big = case.nbytes >= (64 << 20) or case.flops >= 1e10
@@ -3218,20 +3263,20 @@ def phase_times_onchip(torch, card, launches, cases):
         name = None if case.key == "k3" else KERNELS[case.key][3]
         bound_ms, bound_by = case.bound(card)
         dev = {
-            "ms": device_ms(torch, case.call, iters, name=name),
-            "plain_ms": device_ms(torch, case.plain, max(3, iters // 5)),
-            "library_ms": (device_ms(torch, case.library, iters)
+            "ms": profiled(torch, case.call, iters, name=name).ms,
+            "plain_ms": profiled(torch, case.plain, max(3, iters // 5)).ms,
+            "library_ms": (profiled(torch, case.library, iters).ms
                            if case.library else None),
         }
-        event = {"ms": time_ms(torch, case.call, iters)}
+        event = {"ms": event_ms(torch, case.call, iters)}
         # one source for every field: events when a trace would not do
         complete = dev["ms"] is not None and dev["plain_ms"] is not None and (
             case.library is None or dev["library_ms"] is not None)
         timing = "profiler" if complete else "events"
         if timing == "events":
             dev = {"ms": event["ms"],
-                   "plain_ms": time_ms(torch, case.plain, max(3, iters // 5)),
-                   "library_ms": (time_ms(torch, case.library, iters)
+                   "plain_ms": event_ms(torch, case.plain, max(3, iters // 5)),
+                   "library_ms": (event_ms(torch, case.library, iters)
                                   if case.library else None)}
         got = case.call()
         want = case.plain()
@@ -3249,9 +3294,9 @@ def phase_times_onchip(torch, card, launches, cases):
         if case.key == "k3" and case.nbytes < (64 << 20):
             # the device's time with no host in it: CUDA events around a
             # CUDA graph of 100 captured calls
-            row["graph_ms"] = graph_us(case.call) / 1e3
+            row["graph_ms"] = graph_ms(torch, case.call)
             if case.library is not None:
-                row["library_graph_ms"] = graph_us(case.library) / 1e3
+                row["library_graph_ms"] = graph_ms(torch, case.library)
         if case.flops:
             row["tflops"] = case.flops / dev["ms"] / 1e9
         rows.append(row)
@@ -3312,13 +3357,13 @@ def phase_times_k4(torch, device, card):
         row = {
             "kernel": "k4", "shape": list(shape), "dtype": dtype_name(dtype),
             "paths": times,
-            "chunked_kernel_ms": device_ms(torch, calls["chunked"][0], iters,
-                                           name=K4_KERNELS["chunked"]),
-            "chunked_h0_ms": device_ms(torch, lambda: ops.ssd_scan(a, b, h0),
-                                       iters),
+            "chunked_kernel_ms": profiled(torch, calls["chunked"][0], iters,
+                                          name=K4_KERNELS["chunked"]).ms,
+            "chunked_h0_ms": profiled(torch, lambda: ops.ssd_scan(a, b, h0),
+                                      iters).ms,
             "same_bytes": "torch.add(a, b, out=h)",
-            "same_bytes_ms": device_ms(torch, same, iters),
-            "same_bytes_event_ms": time_ms(torch, same, iters),
+            "same_bytes_ms": profiled(torch, same, iters).ms,
+            "same_bytes_event_ms": event_ms(torch, same, iters),
             "bound_ms": bound_ms, "bound_by": "bytes",
             "bound_share": {k: (bound_ms / min(m for m in v["ms"] if m)
                                 if any(v["ms"]) else None)
@@ -3393,38 +3438,6 @@ def hold(torch, got, want, rel, what) -> float:
     return err
 
 
-def profiled(torch, fn, names):
-    """One run of ``fn`` under ``torch.profiler`` (device activity only):
-    its host wall time in ms, the device time in ms of the kernels whose
-    name contains each of ``names`` and of every device activity (``"*"``),
-    and the kernels counted under each name. The device times are None when
-    the trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    totals = dict.fromkeys(("*",) + tuple(names), 0.0)
-    counts = dict.fromkeys(names, 0)
-    for evt in prof.key_averages():
-        us = getattr(evt, "device_time_total", None)
-        if us is None:
-            us = getattr(evt, "cuda_time_total", 0.0)
-        if us <= 0:
-            continue
-        totals["*"] += us
-        for name in names:
-            if name in evt.key:
-                totals[name] += us
-                counts[name] += evt.count
-    if totals["*"] <= 0:
-        return wall_ms, None, counts
-    return wall_ms, {k: v / 1e3 for k, v in totals.items()}, counts
-
-
 class TimedServe:
     """A ``ServeEngine`` whose prefills and decode steps are timed (host
     clock bracketed by synchronize for a prefill, CUDA events for a decode
@@ -3447,16 +3460,12 @@ class TimedServe:
             return out
 
         def timed_decode(m, tok, cache, clen):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            before = k3.launches
-            start.record()
-            out = decode(m, tok, cache, clen)
-            end.record()
-            end.synchronize()
-            self.decode_ms.append(start.elapsed_time(end))
+            before, out = k3.launches, []
+            self.decode_ms.append(event_ms(
+                torch, lambda: out.append(decode(m, tok, cache, clen)),
+                warmup=0))
             self.decode_k3.append(k3.launches - before)
-            return out
+            return out[0]
 
         engine.api = dataclasses.replace(api, prefill=timed_prefill,
                                          decode_step=timed_decode)
@@ -3574,30 +3583,29 @@ def times_serve_model(torch, device, arch, smi, mesh=None):
     prompt = torch.as_tensor(prompts[0], device=device)[None]
     with torch.inference_mode(), use_topology(topo):
         api.prefill(model, {"tokens": prompt})   # warm-up
-        _, pf, pf_counts = profiled(
-            torch, lambda: api.prefill(model, {"tokens": prompt}),
-            ("k3_scan_kernel", "k5_flash_kernel"))
+        pf = profiled(torch, lambda: api.prefill(model, {"tokens": prompt}),
+                      warmup=0)
 
     def decode_steps():
         for _ in range(8):
             eng.step()
 
-    dec_wall, dec, _ = profiled(torch, decode_steps, ())
+    dec = profiled(torch, decode_steps, warmup=0)
     line = {
         "phase": "times_serve_model", "arch": arch, "dtype": cfg.dtype,
         "mesh": mesh, "prompt_tokens": len(prompts[0]),
-        "prefill_device_ms": None if pf is None else pf["*"],
-        "decode_profiled_ms_per_step": dec_wall / 8,
-        "decode_device_ms_per_step": None if dec is None else dec["*"] / 8,
-        "decode_host_share": None if dec is None else 1.0 - dec["*"] / dec_wall,
+        "prefill_device_ms": pf.ms,
+        "decode_profiled_ms_per_step": dec.wall_ms / 8,
+        "decode_device_ms_per_step": None if dec.ms is None else dec.ms / 8,
+        "decode_host_share": None if dec.ms is None else 1.0 - dec.ms / dec.wall_ms,
         "card": smi,
     }
-    if cfg.family == "ssm":
-        line["k3_device_ms_per_prefill"] = None if pf is None else pf["k3_scan_kernel"]
-        line["k3_launches_profiled"] = pf_counts["k3_scan_kernel"]
-    else:  # the prefill's attention on K5, where the route takes the prompt
-        line["k5_device_ms_per_prefill"] = None if pf is None else pf["k5_flash_kernel"]
-        line["k5_launches_profiled"] = pf_counts["k5_flash_kernel"]
+    # the prefill's scan on K3 (SSM), or its attention on K5 where the route
+    # takes the prompt
+    key = "k3" if cfg.family == "ssm" else "k5"
+    ms, n = kernel_sum(pf.kernels, KERNELS[key][3])
+    line[f"{key}_device_ms_per_prefill"] = None if pf.ms is None else ms
+    line[f"{key}_launches_profiled"] = n
     del eng, model
     torch.cuda.empty_cache()
     emit(line)
@@ -3835,12 +3843,20 @@ def times_serve_forward(torch, device, smi, mods):
         raise AssertionError(f"forward: {tuple(logits.shape)}, finite "
                              f"{bool(torch.isfinite(logits).all())}")
     del logits
-    before = k3.launches
-    wall_ms, dev, counts = profiled(torch, forward, ("k3_scan_kernel",))
-    if k3.launches - before != cfg.num_layers or counts["k3_scan_kernel"] not in (
+    launched = []
+
+    def counted():
+        before = k3.launches
+        forward()
+        launched.append(k3.launches - before)
+
+    run = profiled(torch, counted, warmup=0)
+    wall_ms = run.wall_ms
+    k3_ms, k3_profiled = kernel_sum(run.kernels, "k3_scan_kernel")
+    if launched[-1] != cfg.num_layers or k3_profiled not in (
             0, cfg.num_layers):
-        raise AssertionError(f"forward: K3 launched {k3.launches - before} "
-                             f"times, {counts['k3_scan_kernel']} profiled")
+        raise AssertionError(f"forward: K3 launched {launched[-1]} "
+                             f"times, {k3_profiled} profiled")
     # the entry phase's input for this shape: the same scan alone, 20 calls
     # in one profile
     gen = torch.Generator(device=device)
@@ -3852,9 +3868,9 @@ def times_serve_forward(torch, device, smi, mods):
             ops.prefix_scan(seg)
 
     scans()
-    _, alone_dev, alone_counts = profiled(torch, scans, ("k3_scan_kernel",))
-    alone = (None if alone_dev is None or not alone_counts["k3_scan_kernel"]
-             else alone_dev["k3_scan_kernel"] / alone_counts["k3_scan_kernel"])
+    alone_ms, alone_n = kernel_sum(profiled(torch, scans, warmup=0).kernels,
+                                   "k3_scan_kernel")
+    alone = alone_ms / alone_n if alone_n else None
     # the copy that movedim + reshape make of every layer's increments
     # before K3 (the strided form that would take the view is still open)
     dAc = seen[0]
@@ -3863,20 +3879,18 @@ def times_serve_forward(torch, device, smi, mods):
         x = torch.movedim(dAc, 2, 3).float()
         return x.reshape(-1, x.shape[-1])
 
-    from repro_torch.testing.k3_ablation import graph_us
-
-    copy_ms = device_ms(torch, copy, 20)
+    copy_ms = profiled(torch, copy, 20).ms
     # the profiler drops this short kernel's records now and then: also a
     # CUDA graph of 100 copies, read by events (no host in it)
-    copy_graph_ms = graph_us(copy) / 1e3
+    copy_graph_ms = graph_ms(torch, copy)
     line = {
         "phase": "times_serve_forward", "arch": cfg.name, "dtype": cfg.dtype,
         "shape": [B, S], "wall_ms": wall_ms,
-        "device_ms": None if dev is None else dev["*"],
-        "host_share": None if dev is None else 1.0 - dev["*"] / wall_ms,
+        "device_ms": run.ms,
+        "host_share": None if run.ms is None else 1.0 - run.ms / wall_ms,
         "k3_launches": cfg.num_layers,
-        "k3_ms_per_launch_in_model": (None if dev is None
-                                      else dev["k3_scan_kernel"] / cfg.num_layers),
+        "k3_ms_per_launch_in_model": (None if run.ms is None
+                                      else k3_ms / cfg.num_layers),
         "k3_ms_alone": alone, "k3_shape": [8, 16, 24, 256],
         # the movedim-and-reshape copy before each launch, alone
         "segment_copy": {"input": [list(dAc.shape), dtype_name(dAc.dtype)],
@@ -4361,28 +4375,6 @@ def phase_mesh(torch, device, smi):
     return {"k3_launches": k3}
 
 
-def kernel_times(torch, fn):
-    """One run of ``fn`` under ``torch.profiler`` (device activity only):
-    its host wall ms and each kernel's (device ms, launches) by name; the
-    table is empty when the trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    table = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "device_time_total", None)
-        if us is None:
-            us = getattr(evt, "cuda_time_total", 0.0)
-        if us > 0:
-            table[evt.key] = (us / 1e3, evt.count)
-    return wall_ms, table
-
-
 def phase_times_mesh(torch, device, smi):
     """The mesh paths' profiler readings: the Mamba2-130m (8, 4096) bf16
     forward under the (1, 8) mesh beside the unmeshed one (device ms, host
@@ -4410,15 +4402,14 @@ def phase_times_mesh(torch, device, smi):
                     model, {"tokens": tokens})[0])
 
         forward()
-        wall_ms, table = kernel_times(torch, forward)
-        tables[name] = table
-        dev = sum(ms for ms, _ in table.values()) if table else None
-        k3 = [v for k, v in table.items() if "k3_scan_kernel" in k]
+        run = profiled(torch, forward, warmup=0)
+        tables[name] = run.kernels
+        k3_ms, k3_n = kernel_sum(run.kernels, "k3_scan_kernel")
         line[name] = {
-            "wall_ms": wall_ms, "device_ms": dev,
-            "host_share": None if dev is None else 1.0 - dev / wall_ms,
-            "k3_device_ms": sum(ms for ms, _ in k3) if k3 else None,
-            "k3_launches_profiled": sum(n for _, n in k3)}
+            "wall_ms": run.wall_ms, "device_ms": run.ms,
+            "host_share": None if run.ms is None else 1.0 - run.ms / run.wall_ms,
+            "k3_device_ms": k3_ms if k3_n else None,
+            "k3_launches_profiled": k3_n}
     added = sorted(
         ((tables["mesh"].get(k, (0.0, 0))[0] - tables["plain"].get(k, (0.0, 0))[0],
           k) for k in set(tables["mesh"]) | set(tables["plain"])),
@@ -4678,10 +4669,10 @@ def phase_times_train(torch, device, smi, card):
         scan = {}
         for name, rev in (("forward", False), ("reverse", True)):
             scan[name] = {
-                "device_ms": device_ms(
+                "device_ms": profiled(
                     torch, lambda: k3.scan_rows(x, reverse=rev), 100,
-                    name=KERNELS["k3"][3]),
-                "event_ms": time_ms(
+                    name=KERNELS["k3"][3]).ms,
+                "event_ms": event_ms(
                     torch, lambda: k3.scan_rows(x, reverse=rev), 100)}
         bound = scan_bytes(x) / mem_bandwidth(card) * 1e3
         rtol, atol = scan_tolerance(torch, "add", x.dtype)
@@ -4716,9 +4707,9 @@ def phase_times_train(torch, device, smi, card):
 
     for _ in range(2):
         step()
-    wall_ms, table = kernel_times(torch, step)
-    dev = sum(ms for ms, _ in table.values()) if table else None
-    k3_rows = [v for k, v in table.items() if KERNELS["k3"][3] in k]
+    run = profiled(torch, step, warmup=0)
+    wall_ms, dev = run.wall_ms, run.ms
+    k3_ms, k3_n = kernel_sum(run.kernels, KERNELS["k3"][3])
     line = {"phase": "times_train", "card": smi,
             "k3_rows": [R, L], "k3_bound_ms": bound_ms, "k3": scan,
             "k3_big": {"rows": [8192, 8192], "bound_ms": big_bound_ms,
@@ -4726,9 +4717,8 @@ def phase_times_train(torch, device, smi, card):
             "step": {"arch": cfg.name, "dtype": cfg.dtype, "batch": [B, S],
                      "wall_ms": wall_ms, "device_ms": dev,
                      "device_share": None if dev is None else dev / wall_ms,
-                     "k3_device_ms": (sum(ms for ms, _ in k3_rows)
-                                      if k3_rows else None),
-                     "k3_launches_profiled": sum(n for _, n in k3_rows)}}
+                     "k3_device_ms": k3_ms if k3_n else None,
+                     "k3_launches_profiled": k3_n}}
     emit(line)
     del state, model, opt
     torch.cuda.empty_cache()
@@ -4816,36 +4806,13 @@ def roofline_calls(torch, device):
     torch.cuda.empty_cache()
 
 
-def device_seconds(torch, fn):
-    """The device time of one run of ``fn``: the profiler's sum of every
-    device activity, after an untimed primer launch in the same session (a
-    session's first launch can leave no record); CUDA events around the
-    call when the trace holds no device time (then the span, idle gaps
-    included). Returns (seconds, how, wall ms)."""
-    primer = torch.zeros(1, device="cuda")
-
-    def primed():
-        primer.add_(1)
-        torch.cuda.synchronize()
-        fn()
-
-    wall_ms, table = kernel_times(torch, primed)
-    if table:
-        return sum(ms for ms, _ in table.values()) / 1e3, "profiler", wall_ms
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / 1e3, "events", wall_ms
-
-
 def phase_roofline(torch, device, smi, card):
     """Each of :func:`roofline_calls`, after a warm-up, counted once under
-    ``CostMode`` and then run again, uncounted, under the profiler
-    (:func:`device_seconds`): FLOPs, bytes, the compute and memory terms,
+    ``CostMode`` and then run again, uncounted, under the profiler (the sum
+    of every device activity, after an untimed primer launch in the same
+    session: a session's first launch can leave no record; CUDA events
+    around the call when the trace holds no device time, then the span,
+    idle gaps included): FLOPs, bytes, the compute and memory terms,
     the bound and its bottleneck, ``model_flops``, the device time,
     ``bound_share = t_bound / device_s`` (at most
     ``ROOFLINE_BOUND_SHARE_MAX``: a bound above the measured time is a
@@ -4860,7 +4827,14 @@ def phase_roofline(torch, device, smi, card):
     peak = peak_flops(card, "bfloat16")
     t0 = time.perf_counter()
     rows = {}
+    primer = torch.zeros(1, device="cuda")
     for what, fn, mf, want_k3, k3_shape in roofline_calls(torch, device):
+
+        def primed(fn=fn):
+            primer.add_(1)
+            torch.cuda.synchronize()
+            fn()
+
         fn()                                  # warm-up
         torch.cuda.synchronize()
         before = (k3.launches, k3.reverse_launches)
@@ -4886,7 +4860,12 @@ def phase_roofline(torch, device, smi, card):
                     f"roofline {what}: a K3 charge of {got}, {c.bytes} B; "
                     f"{k3_shape}, {one.bytes} B predicted")
         roof = an.analyze(mode.cost, 1, card=an.card_for(card))
-        device_s, timing, wall_ms = device_seconds(torch, fn)
+        run = profiled(torch, primed, warmup=0)
+        wall_ms = run.wall_ms
+        if run.ms is not None:
+            device_s, timing = run.ms / 1e3, "profiler"
+        else:
+            device_s, timing = event_ms(torch, fn, warmup=0) / 1e3, "events"
         share = roof.t_bound / device_s
         rows[what] = {
             "call": what, "flops": mode.cost.flops, "bytes": mode.cost.bytes,

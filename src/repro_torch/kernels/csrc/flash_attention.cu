@@ -68,27 +68,14 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
-// Design switches, each 1 (the shipped kernel) unless the build defines it
-// otherwise; repro_torch/testing/k5_ablation.py builds and times each one
-// changed.
-// tc: the two consumer warpgroups take turns to issue their products
-#ifndef K5_TC_TURNS
-#define K5_TC_TURNS 1
-#endif
-// tc: the next tile's S and this tile's P.V stay in flight during the
-// softmax: 0 never, 1 below D = 128, 2 at every head size
-#ifndef K5_TC_PIPE
-#define K5_TC_PIPE 1
-#endif
-// tc: under a window, one head's query tiles run together
-#ifndef K5_TC_BY_HEAD
-#define K5_TC_BY_HEAD 1
-#endif
-// decode: a one-row call runs the kernel compiled for one row (else the one
-// for 16)
-#ifndef K5_DECODE_ROWS1
-#define K5_DECODE_ROWS1 1
-#endif
+// What each design choice below gained on an H100 (PR 14's chip runs, bf16,
+// events us a call): at SmolLM's D = 64 prefill the consumer warpgroups'
+// turns (125.2-125.6 without, against 115.3-118.3) and the in-flight S /
+// P.V (124.6-125.1 without); at D = 128 in-flight S / P.V took 535.8-537.2
+// against 334.4-339.5 (ptxas serialized the wgmma); under a window one
+// head's query tiles together gave 2-5% over the causal order; the one-row
+// decode kernel took 13.8-14.1 device us against the 16-row kernel's
+// 32.9-33.0.
 
 namespace {
 
@@ -908,8 +895,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   // flight during the softmax) needs S, P and O live at once: at D = 128
   // that exceeds the consumers' registers and ptxas serializes the wgmma
   // instead, so D = 128 issues its products one tile at a time.
-  constexpr bool PIPE = K5_TC_PIPE == 2 || (K5_TC_PIPE == 1 && D < 128);
-  constexpr bool TURNS = K5_TC_TURNS;
+  constexpr bool PIPE = D < 128;
   const Params& prm = tp.p;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -924,7 +910,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   // window, where the tiles cost about the same, the tiles of one head run
   // together so that its keys stay in L2
   const int nqt = (int)((prm.Sq + BQ - 1) / BQ), nbh = (int)tp.BH;
-  const bool by_head = K5_TC_BY_HEAD && prm.window > 0;
+  const bool by_head = prm.window > 0;
   const int bh = by_head ? (int)blockIdx.x / nqt : (int)blockIdx.x % nbh;
   const int qt = by_head ? (int)blockIdx.x % nqt : (int)blockIdx.x / nbh;
   const long long q0 = (long long)(nqt - 1 - qt) * BQ;
@@ -1102,12 +1088,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     //   issues and waits alike and ptxas can follow the wgmma groups
     //   without serializing them.
     auto my_turn = [&]() {
-      if constexpr (TURNS) asm volatile("bar.sync %0, 256;\n" ::"r"(1 + g) : "memory");
+      asm volatile("bar.sync %0, 256;\n" ::"r"(1 + g) : "memory");
     };
     auto their_turn = [&]() {
-      if constexpr (TURNS) asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - g) : "memory");
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - g) : "memory");
     };
-    if (TURNS && g == 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+    if (g == 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
     mbar_wait(bar_q, 0);
     if constexpr (PIPE) {
       my_turn();
@@ -1229,7 +1215,7 @@ int launch_decode_rows(const void* q, const void* k, const void* v, void* o, voi
 template <typename T, int D>
 int launch_decode(const void* q, const void* k, const void* v, void* o, void* work,
                   long long BH, const dec::SplitParams& sp, cudaStream_t s, int* n) {
-  if (K5_DECODE_ROWS1 && sp.p.Sq == 1)
+  if (sp.p.Sq == 1)
     return launch_decode_rows<T, D, 1>(q, k, v, o, work, BH, sp, s, n);
   if (sp.p.Sq <= dec::MAXQ)
     return launch_decode_rows<T, D, dec::MAXQ>(q, k, v, o, work, BH, sp, s, n);

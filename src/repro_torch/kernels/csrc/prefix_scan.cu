@@ -17,25 +17,25 @@
 // paths, which kernels/prefix_scan.py::plan_launch picks for each call:
 //
 // * rows (k3_scan_kernel_rows), short rows (L * itemsize up to 8 KiB): one
-//   warp scans one row (K3_ROW_LANES lanes a row), K3_ROW_WARPS rows a block.
-//   A segment is one vector a lane; all of a batch's K3_ROW_SEGS segments are
-//   loaded before any combine (a row of up to K3_ROW_SEGS segments in one
-//   round trip), and the next batch's loads are issued before this one is
-//   scanned. Each lane scans its vector serially in registers, the lane
-//   totals are scanned with shuffles, and the carry across segments stays in
-//   a register: no shared memory and no __syncthreads. Mamba2-130m's segment
+//   warp scans one row, ROWS_PER_BLOCK rows a block. A segment is one vector
+//   a lane; all of a batch's ROW_SEGS segments are loaded before any combine
+//   (a row of up to ROW_SEGS segments in one round trip), and the next
+//   batch's loads are issued before this one is scanned. Each lane scans its
+//   vector serially in registers, the lane totals are scanned with shuffles,
+//   and the carry across segments stays in a register: no shared memory and
+//   no __syncthreads. Mamba2-130m's segment
 //   scan (3072, 256) f32 is 384 blocks in one wave; its training step's
 //   (768, 256), forward and reverse, is bound by the launch.
 // * tiles (k3_scan_kernel_tiles), long rows and many of them (R of at least
-//   two blocks an SM): one block of K3_TILE_THREADS a row, walking tiles of
-//   K3_TILE_VECS vectors a thread. The next tile's vectors are loaded into a
-//   second set of registers before the current tile is scanned
-//   (K3_PREFETCH), so a block always has a tile of loads in flight. One
-//   barrier a tile: the warp totals are double-buffered in shared memory,
-//   and every warp scans all of them itself.
+//   two blocks an SM): one block of TILE_THREADS a row, walking tiles of
+//   TILE_VECS vectors a thread. The next tile's vectors are loaded into a
+//   second set of registers before the current tile is scanned, so a block
+//   always has a tile of loads in flight. One barrier a tile: the warp
+//   totals are double-buffered in shared memory, and every warp scans all of
+//   them itself.
 // * lookback (k3_scan_kernel_lookback), few long rows (the I/O offsets of
-//   one large array): each row is cut into chunks of K3_CHUNK_VECS vectors a
-//   thread of a K3_CHUNK_THREADS block, one block a chunk, so every SM works
+//   one large array): each row is cut into chunks of CHUNK_VECS vectors a
+//   thread of a CHUNK_THREADS block, one block a chunk, so every SM works
 //   on one row. A block takes
 //   its chunk from an atomic ticket (never blockIdx), so the chunks it waits
 //   on are already resident; it publishes its chunk's aggregate, then warp 0
@@ -79,41 +79,17 @@
 // five STG.E), so the gap was not in the code but in how its scalar,
 // 16-byte-strided warp accesses met the memory system in each direction. With whole 16-byte vectors the
 // two directions run within 0.3% of each other on an H100; with one
-// coalesced element a lane a gap comes back, the other way round
-// (testing/k3_ablation.py times both).
+// coalesced element a lane a gap comes back, the other way round.
+//
+// What lost on an H100 (PR 24's chip runs, float32 add, forward): two or four
+// rows a warp took 1.80 and 2.55 us at (768, 256) against a warp a row's
+// 1.48; without the prefetch (8192, 8192) ran 0.9% slower and nothing else
+// moved.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
-
-#ifndef K3_VEC_BYTES
-#define K3_VEC_BYTES 16  // bytes a lane loads at once on the vector variant
-#endif
-#ifndef K3_ROW_LANES
-#define K3_ROW_LANES 32  // lanes that scan one row on the rows path (32: a warp a row)
-#endif
-#ifndef K3_ROW_WARPS
-#define K3_ROW_WARPS 8  // warps a block of the rows path
-#endif
-#ifndef K3_ROW_SEGS
-#define K3_ROW_SEGS 2  // segments (one vector a lane) a row group loads at once
-#endif
-#ifndef K3_TILE_THREADS
-#define K3_TILE_THREADS 256  // threads a block of the tiles path
-#endif
-#ifndef K3_TILE_VECS
-#define K3_TILE_VECS 2  // vectors a thread holds per tile (tiles path)
-#endif
-#ifndef K3_PREFETCH
-#define K3_PREFETCH 1  // 1: the next batch or tile's loads in flight during this one's scan
-#endif
-#ifndef K3_CHUNK_THREADS
-#define K3_CHUNK_THREADS 128  // threads a block of the lookback path
-#endif
-#ifndef K3_CHUNK_VECS
-#define K3_CHUNK_VECS 8  // vectors a thread holds per chunk (lookback path)
-#endif
 
 namespace {
 
@@ -122,26 +98,22 @@ enum DType { DT_INT32 = 0, DT_FLOAT32 = 1, DT_BFLOAT16 = 2, DT_FLOAT16 = 3, DT_I
 enum PathCode { PATH_ROWS = 0, PATH_TILES = 1, PATH_LOOKBACK = 2 };
 enum ChunkState : unsigned { NOT_READY = 0, AGGREGATE = 1, INCLUSIVE = 2 };
 
-constexpr int VEC_BYTES = K3_VEC_BYTES;
-constexpr int ROW_LANES = K3_ROW_LANES;
-constexpr int ROW_THREADS = 32 * K3_ROW_WARPS;
-constexpr int ROWS_PER_BLOCK = ROW_THREADS / ROW_LANES;
-constexpr int ROW_SEGS = K3_ROW_SEGS;
-constexpr int TILE_THREADS = K3_TILE_THREADS;
-constexpr int CHUNK_THREADS = K3_CHUNK_THREADS;
-constexpr bool PREFETCH = K3_PREFETCH != 0;
+// the design (kernels/prefix_scan.py plans with these)
+constexpr int VEC_BYTES = 16;       // bytes a lane loads at once on the vector variant
+constexpr int ROW_THREADS = 256;    // threads a block of the rows path
+constexpr int ROWS_PER_BLOCK = ROW_THREADS / 32;  // a warp a row
+constexpr int ROW_SEGS = 2;         // segments (one vector a lane) a row loads at once
+constexpr int TILE_THREADS = 256;   // threads a block of the tiles path
+constexpr int TILE_VECS = 2;        // vectors a thread holds a tile
+constexpr int CHUNK_THREADS = 128;  // threads a block of the lookback path
+constexpr int CHUNK_VECS = 8;       // vectors a thread holds a chunk
 // look-back scratch words before the chunks' status words: the ticket, the
 // timeout (chunk + 1 of a block that gave up)
 constexpr int HEAD_WORDS = 2;
 constexpr unsigned FULL = 0xffffffffu;
 
-static_assert(VEC_BYTES == 4 || VEC_BYTES == 8 || VEC_BYTES == 16, "K3_VEC_BYTES: 4, 8 or 16");
-static_assert(ROW_LANES == 8 || ROW_LANES == 16 || ROW_LANES == 32, "K3_ROW_LANES: 8, 16 or 32");
-static_assert(ROW_THREADS <= 1024 && TILE_THREADS <= 1024 && CHUNK_THREADS <= 1024 &&
-                  TILE_THREADS % 32 == 0 && CHUNK_THREADS % 32 == 0,
-              "threads a block: a multiple of 32, at most 1024");
 // the warp totals of a tile or chunk are scanned by one warp
-static_assert(K3_TILE_VECS * TILE_THREADS <= 1024 && K3_CHUNK_VECS * CHUNK_THREADS <= 1024,
+static_assert(TILE_VECS * TILE_THREADS <= 1024 && CHUNK_VECS * CHUNK_THREADS <= 1024,
               "a tile's warp totals must fit one warp");
 
 // storage type T <-> carry type A (float for floating types, int32 for
@@ -325,19 +297,19 @@ struct VecScan {
   }
 };
 
-// inclusive scan of x over groups of W lanes (g: the lane's place in its group)
-template <typename A, int OP, int W>
-__device__ __forceinline__ A group_scan(A x, int g) {
+// inclusive scan of x over the warp
+template <typename A, int OP>
+__device__ __forceinline__ A warp_scan(A x, int lane) {
 #pragma unroll
-  for (int off = 1; off < W; off <<= 1) {
-    const A y = __shfl_up_sync(FULL, x, off, W);
-    if (g >= off) x = Op<A, OP>::combine(y, x);
+  for (int off = 1; off < 32; off <<= 1) {
+    const A y = __shfl_up_sync(FULL, x, off);
+    if (lane >= off) x = Op<A, OP>::combine(y, x);
   }
   return x;
 }
 
 // ---------------------------------------------------------------------------
-// rows: ROW_LANES lanes a row, ROWS_PER_BLOCK rows a block
+// rows: a warp a row, ROWS_PER_BLOCK rows a block
 // ---------------------------------------------------------------------------
 template <typename T, int OP, bool REVERSE, int V>
 __global__ void __launch_bounds__(ROW_THREADS) k3_scan_kernel_rows(
@@ -346,11 +318,11 @@ __global__ void __launch_bounds__(ROW_THREADS) k3_scan_kernel_rows(
   typedef typename Io<T>::A A;
   typedef Op<A, OP> O;
   typedef VecScan<T, OP, REVERSE, V> S;
-  constexpr int SEG = ROW_LANES * V;    // elements a segment
+  constexpr int SEG = 32 * V;            // elements a segment
   constexpr int BATCH = SEG * ROW_SEGS;  // elements a batch of loads
-  const int g = threadIdx.x % ROW_LANES;
-  const long long row = (long long)blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / ROW_LANES;
-  const bool live_row = row < R;  // a group past the last row still shuffles
+  const int g = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
+  const bool live_row = row < R;  // a warp past the last row still shuffles
   const T* xr = x + (live_row ? row : 0) * L;
   T* yr = y + (live_row ? row : 0) * L;
   const A fillv = (A)fill;
@@ -369,7 +341,7 @@ __global__ void __launch_bounds__(ROW_THREADS) k3_scan_kernel_rows(
   load_batch(cur, 0);
   for (long long base = 0; base < L; base += BATCH) {
     const bool more = base + BATCH < L;
-    if (PREFETCH && more) load_batch(nxt, base + BATCH);
+    if (more) load_batch(nxt, base + BATCH);
 #pragma unroll
     for (int s = 0; s < ROW_SEGS; ++s) {
       if (base + s * SEG < L) {  // the same for every lane of the warp
@@ -377,21 +349,17 @@ __global__ void __launch_bounds__(ROW_THREADS) k3_scan_kernel_rows(
         const bool live = i < L;
         S sc;
         sc.unpack(cur[s], live);
-        const A incl = group_scan<A, OP, ROW_LANES>(sc.v[V - 1], g);
-        A before = __shfl_up_sync(FULL, incl, 1, ROW_LANES);
+        const A incl = warp_scan<A, OP>(sc.v[V - 1], g);
+        A before = __shfl_up_sync(FULL, incl, 1);
         before = g == 0 ? carry : O::combine(carry, before);
         if (live_row && live)
           sc.pack(before, exclusive, i == 0, fillv).template store<false>(yr + phys<REVERSE, V>(L, i));
-        carry = O::combine(carry, __shfl_sync(FULL, incl, ROW_LANES - 1, ROW_LANES));
+        carry = O::combine(carry, __shfl_sync(FULL, incl, 31));
       }
     }
     if (more) {
-      if (PREFETCH) {
 #pragma unroll
-        for (int s = 0; s < ROW_SEGS; ++s) cur[s] = nxt[s];
-      } else {
-        load_batch(cur, base + BATCH);
-      }
+      for (int s = 0; s < ROW_SEGS; ++s) cur[s] = nxt[s];
     }
   }
 }
@@ -422,7 +390,7 @@ struct TileScan {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       sc[u].unpack(raw[u], base + u * SUB + (long long)threadIdx.x * V < L);
-      const A incl = group_scan<A, OP, 32>(sc[u].v[V - 1], lane);
+      const A incl = warp_scan<A, OP>(sc[u].v[V - 1], lane);
       const A up = __shfl_up_sync(FULL, incl, 1);
       lane_before[u] = lane == 0 ? O::identity() : up;
       if (lane == 31) tot[u * WARPS + warp] = incl;
@@ -432,7 +400,7 @@ struct TileScan {
   __device__ __forceinline__ void block(const A* tot) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     A t = lane < N ? tot[lane] : O::identity();
-    t = group_scan<A, OP, 32>(t, lane);
+    t = warp_scan<A, OP>(t, lane);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int idx = u * WARPS + warp;
@@ -469,12 +437,12 @@ __device__ __forceinline__ void load_tile(Raw<T, V> (&raw)[U], const T* xr, long
 }
 
 // ---------------------------------------------------------------------------
-// tiles: one block a row, K3_TILE_VECS vectors a thread a tile
+// tiles: one block a row, TILE_VECS vectors a thread a tile
 // ---------------------------------------------------------------------------
 template <typename T, int OP, bool REVERSE, int V>
 __global__ void __launch_bounds__(TILE_THREADS) k3_scan_kernel_tiles(
     const T* __restrict__ x, T* __restrict__ y, long long L, int exclusive, double fill) {
-  constexpr int U = K3_TILE_VECS;
+  constexpr int U = TILE_VECS;
   typedef TileScan<T, OP, REVERSE, V, U, TILE_THREADS> TS;
   typedef typename TS::A A;
   typedef typename TS::O O;
@@ -490,7 +458,7 @@ __global__ void __launch_bounds__(TILE_THREADS) k3_scan_kernel_tiles(
   int buf = 0;
   for (long long base = 0; base < L; base += TS::TILE, buf ^= 1) {
     const bool more = base + TS::TILE < L;
-    if (PREFETCH && more) load_tile<T, V, U, TILE_THREADS>(nxt, xr, base + TS::TILE, L, REVERSE);
+    if (more) load_tile<T, V, U, TILE_THREADS>(nxt, xr, base + TS::TILE, L, REVERSE);
     TS ts;
     ts.warps(cur, base, L, s_tot[buf]);
     __syncthreads();
@@ -498,18 +466,14 @@ __global__ void __launch_bounds__(TILE_THREADS) k3_scan_kernel_tiles(
     ts.template store<true>(yr, base, L, carry, exclusive, fillv);
     carry = O::combine(carry, ts.total);
     if (more) {
-      if (PREFETCH) {
 #pragma unroll
-        for (int u = 0; u < U; ++u) cur[u] = nxt[u];
-      } else {
-        load_tile<T, V, U, TILE_THREADS>(cur, xr, base + TS::TILE, L, REVERSE);
-      }
+      for (int u = 0; u < U; ++u) cur[u] = nxt[u];
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// lookback: one block a chunk of K3_CHUNK_VECS vectors a thread
+// lookback: one block a chunk of CHUNK_VECS vectors a thread
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void store_status(unsigned long long* p, unsigned state,
                                              unsigned value) {
@@ -529,7 +493,7 @@ template <typename T, int OP, bool REVERSE, int V>
 __global__ void __launch_bounds__(CHUNK_THREADS) k3_scan_kernel_lookback(
     const T* __restrict__ x, T* __restrict__ y, long long L, long long chunks, int exclusive,
     double fill, unsigned long long* __restrict__ ws, long long timeout_cycles) {
-  constexpr int U = K3_CHUNK_VECS;
+  constexpr int U = CHUNK_VECS;
   typedef TileScan<T, OP, REVERSE, V, U, CHUNK_THREADS> TS;
   typedef typename TS::A A;
   typedef typename TS::O O;
@@ -641,7 +605,7 @@ int launch_path(const Call& c) {
       break;
     case PATH_LOOKBACK: {
       if (c.ws == nullptr) return -1;
-      constexpr long long CHUNK = (long long)CHUNK_THREADS * V * K3_CHUNK_VECS;
+      constexpr long long CHUNK = (long long)CHUNK_THREADS * V * CHUNK_VECS;
       const long long chunks = (c.L + CHUNK - 1) / CHUNK;
       if (c.blocks != c.R * chunks) return -2;
       const cudaError_t err = cudaMemsetAsync(
@@ -714,31 +678,15 @@ int clock_khz() {
 
 }  // namespace
 
-// The compile-time design of this build (kernels/prefix_scan.py plans with
-// it): vector bytes, lanes a row, warps a rows block, segments a batch,
-// threads a tile block, vectors a thread a tile, prefetch, threads a chunk
-// block, vectors a thread a chunk.
-extern "C" void k3_scan_build(int* out) {
-  out[0] = VEC_BYTES;
-  out[1] = ROW_LANES;
-  out[2] = K3_ROW_WARPS;
-  out[3] = ROW_SEGS;
-  out[4] = TILE_THREADS;
-  out[5] = K3_TILE_VECS;
-  out[6] = K3_PREFETCH;
-  out[7] = CHUNK_THREADS;
-  out[8] = K3_CHUNK_VECS;
-}
-
 // Scan every row of a contiguous (R, L) array x into y as plan_launch
 // planned it. `code` packs the call into one word (ctypes converts each
 // argument on every call, about a third of a microsecond each): bits 0-1
 // the path (0 rows, 1 tiles, 2 lookback), 2-3 the op (0 add, 1 max, 2 mul),
-// 4-6 the dtype, 7-11 the vector width (K3_VEC_BYTES / itemsize, or 1), 12
+// 4-6 the dtype, 7-11 the vector width (VEC_BYTES / itemsize, or 1), 12
 // exclusive, 13 reverse (add only), 16 and up the grid. ws: the lookback
 // path's scratch, HEAD_WORDS + grid 64-bit words, zeroed here (null on the
 // other paths). Returns 0 on a launched kernel, -1 for an op, dtype,
-// direction or plan that this build does not take, -2 for a grid it cannot
+// direction or plan that the kernels do not take, -2 for a grid they cannot
 // launch, else the CUDA error of the launch.
 extern "C" int k3_prefix_scan(long long code, const void* x, void* y, long long R, long long L,
                               void* ws, void* stream) {

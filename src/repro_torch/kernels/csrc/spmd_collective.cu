@@ -34,11 +34,11 @@
 //   * The sender writes its accumulator straight into the partner's slot
 //     with st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 (mapa
 //     gives the partner's addresses), one instruction per 16 bytes; the
-//     bytes complete on the partner's barrier. (K2_PUT_BULK=1 builds the
-//     bulk form: each thread writes its 16 bytes into a staging row of its
-//     own shared memory, and after a fence to the async proxy and a CTA
-//     barrier one thread copies each leaf row with cp.async.bulk; it needs
-//     twice the shared memory and timed up to 16% slower.) Every exchange is a full
+//     bytes complete on the partner's barrier. (A bulk form, each thread
+//     writing its 16 bytes into a staging row of its own shared memory and
+//     one thread copying each leaf row with cp.async.bulk after a fence to
+//     the async proxy and a CTA barrier, needed twice the shared memory and
+//     timed up to 16% slower in PR 15's chip runs.) Every exchange is a full
 //     permutation, so every CTA receives in every exchange, whole rows
 //     (zeros past M), and each barrier is armed once for its slot's bytes.
 //   * Order: barriers initialised and armed, fence.mbarrier_init, then a
@@ -439,37 +439,25 @@ __global__ void __launch_bounds__(BLOCK) k2_peers_kernel(Args<T> a) {
 // the cluster path
 // ---------------------------------------------------------------------------
 
-// Design switches of the cluster path (repro_torch.testing.k2_ablation
-// builds the source with each changed and times it):
-//   K2_PUT_BULK          0: st.async, one instruction (and one complete_tx
-//                        on the partner's barrier) per 16 bytes a thread;
-//                        1: one cp.async.bulk a leaf row, from a staging
-//                        row in the sender's shared memory
-//   K2_CLUSTER_THREADS   threads a CTA
-//   K2_SPLIT_SYNC        1: each cluster barrier is split, so that waiting
-//                        on it overlaps other work: the opening one around
-//                        the loads, the closing one (relaxed: it orders no
-//                        memory) around the last combine and the stores;
-//                        0: arrive and wait together, before the loads and
-//                        after the stores
-//   K2_ROW_VECS          16-byte vectors a thread carries a leaf, for every
-//                        type and operator; unset: cl::row_vecs's rule
-#ifndef K2_PUT_BULK
-#define K2_PUT_BULK 0
-#endif
-#ifndef K2_CLUSTER_THREADS
-#define K2_CLUSTER_THREADS 128
-#endif
-#ifndef K2_SPLIT_SYNC
-#define K2_SPLIT_SYNC 1
-#endif
+// The cluster path's design, and what lost to it on an H100 (PR 15's chip
+// runs, float32 SUM, device us at SCAN p = 8 and 16 with 1 MiB a rank and
+// ALLREDUCE p = 8 with 25 MiB; the shipped form 13.9-14.0, 30.3-30.6 and
+// 242.8-267.7):
+// * each cluster barrier is split, so that waiting on it overlaps other
+//   work: the opening one around the loads, the closing one (relaxed: it
+//   orders no memory) around the last combine and the stores. Arrive and
+//   wait together took 15.2-15.3, 33.5-33.8 and 266.4-268.1;
+// * one st.async (and one complete_tx on the partner's barrier) per 16
+//   bytes a thread. One cp.async.bulk a leaf row from a staging row took
+//   14.6-14.7, 35.1-35.3 and 271.1-271.9;
+// * 128 threads a CTA (256 took 15.1, 33.1-33.4 and 271.7-274.1), each
+//   carrying row_vecs vectors a leaf (one vector took 16.0-16.1, 36.7-36.9
+//   and 384.0-385.2).
 
 namespace cl {
 
-constexpr int THREADS = K2_CLUSTER_THREADS;  // threads a CTA
-constexpr bool BULK = K2_PUT_BULK != 0;
-constexpr bool SPLIT_SYNC = K2_SPLIT_SYNC != 0;
-constexpr int MAX_RANKS = 16;                // the largest (non-portable) cluster
+constexpr int THREADS = 128;    // threads a CTA
+constexpr int MAX_RANKS = 16;   // the largest (non-portable) cluster
 
 // 16-byte vectors a thread carries a leaf (spmd_collective.cluster_row_vecs):
 // the most of 4, 2, 1 that keeps L x V <= 6 (at p = 16 a fused phase's 9
@@ -477,13 +465,9 @@ constexpr int MAX_RANKS = 16;                // the largest (non-portable) clust
 // thread holds (two streams and the received vectors) within 96
 template <typename T, int L>
 __host__ __device__ constexpr int row_vecs() {
-#ifdef K2_ROW_VECS
-  return K2_ROW_VECS;
-#else
   int v = 4;
   while (v > 1 && (L * v > 6 || 3 * L * (16 / (int)sizeof(T)) * v > 96)) v /= 2;
   return v;
-#endif
 }
 
 // one leaf of one rank row of a tile: V vectors of 16 bytes a thread
@@ -493,13 +477,12 @@ __host__ __device__ constexpr int row_bytes() {
 }
 
 // A CTA's shared memory: one mbarrier (8 bytes) a slot, padded to 16 bytes;
-// then slot e, leaf l at bar_bytes + (e * L + l) * row_bytes; with bulk
-// puts, then a staging row set an exchange, laid out as the slots. A slot
-// and a staging row are each written once per launch.
+// then slot e, leaf l at bar_bytes + (e * L + l) * row_bytes. A slot is
+// written once per launch.
 __host__ __device__ constexpr int bar_bytes(int slots) { return (8 * slots + 15) / 16 * 16; }
 template <typename T, int L>
 __host__ __device__ constexpr int smem_bytes(int slots) {
-  return bar_bytes(slots) + (BULK ? 2 : 1) * slots * L * row_bytes<T, L>();
+  return bar_bytes(slots) + slots * L * row_bytes<T, L>();
 }
 
 template <typename T>
@@ -562,21 +545,6 @@ __device__ __forceinline__ void st_async(uint32_t remote, const uint4& w, uint32
       "r"(w.x), "r"(w.y), "r"(w.z), "r"(w.w), "r"(remote_bar)
       : "memory");
 }
-// a row of the sender's shared memory into a peer's; the bytes complete on
-// the peer's barrier
-[[maybe_unused]] __device__ __forceinline__ void bulk_put(uint32_t remote, uint32_t local,
-                                                          uint32_t bytes, uint32_t remote_bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];" ::"r"(remote),
-      "r"(local), "r"(bytes), "r"(remote_bar)
-      : "memory");
-}
-// this thread's shared-memory writes, visible to the bulk copies (the async
-// proxy) that read them after the next barrier
-[[maybe_unused]] __device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar) {
   uint32_t done;
   asm volatile(
@@ -619,7 +587,6 @@ __global__ void __launch_bounds__(THREADS, 1) k2_cluster_kernel(Args<T> a) {
   const T zero = Num<T>::zero();
   const uint32_t bars = smem_addr(smem);
   const int slot0 = bar_bytes(a.slots);
-  const int stage0 = slot0 + a.slots * L * ROW_BYTES;  // bulk puts only
   int nsteps = 0;
   while ((1 << nsteps) < p) ++nsteps;
 
@@ -633,7 +600,6 @@ __global__ void __launch_bounds__(THREADS, 1) k2_cluster_kernel(Args<T> a) {
   }
   // every peer's barriers are armed before any put
   cluster_arrive_release();
-  if (!SPLIT_SYNC) cluster_wait();
 
   T acc[2][L][VECS][VEC];  // [stream][leaf][vector][element]: stream 0 prefix, 1 suffix
   T rv[L][VECS][VEC];
@@ -643,41 +609,18 @@ __global__ void __launch_bounds__(THREADS, 1) k2_cluster_kernel(Args<T> a) {
       load_row<T, VEC>(a.x[l] + (long long)rank * M, col[j], M, vec_io[j], acc[0][l][j]);
       for (int v = 0; v < VEC; ++v) acc[1][l][j][v] = acc[0][l][j][v];
     }
-  if (SPLIT_SYNC) cluster_wait();
+  cluster_wait();
 
-  // this thread's vectors of stream s, every leaf, towards slot e of rank
-  // dst: straight into it (st.async), or into staging row e (bulk)
+  // this thread's vectors of stream s, every leaf, straight into slot e of
+  // rank dst
   auto put = [&](int s, int dst, int e) {
     for (int l = 0; l < L; ++l)
       for (int j = 0; j < VECS; ++j) {
         uint4 w;
         memcpy(&w, acc[s][l][j], sizeof(w));
         const int at = (e * L + l) * ROW_BYTES + (j * THREADS + threadIdx.x) * 16;
-        if constexpr (BULK)
-          *reinterpret_cast<uint4*>(smem + stage0 + at) = w;
-        else
-          st_async(mapa(bars + slot0 + at, dst), w, mapa(bars + 8 * e, dst));
+        st_async(mapa(bars + slot0 + at, dst), w, mapa(bars + 8 * e, dst));
       }
-  };
-  // bulk: once a round's puts are staged, one thread copies each staged
-  // leaf row into its partner's slot (dst1 < 0: one put this round)
-  auto flush = [&](int dst0, int e0, int dst1, int e1) {
-    if constexpr (BULK) {
-      fence_proxy_async();
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        for (int l = 0; l < L; ++l) {
-          const int at0 = (e0 * L + l) * ROW_BYTES;
-          bulk_put(mapa(bars + slot0 + at0, dst0), bars + stage0 + at0, ROW_BYTES,
-                   mapa(bars + 8 * e0, dst0));
-          if (dst1 >= 0) {
-            const int at1 = (e1 * L + l) * ROW_BYTES;
-            bulk_put(mapa(bars + slot0 + at1, dst1), bars + stage0 + at1, ROW_BYTES,
-                     mapa(bars + 8 * e1, dst1));
-          }
-        }
-      }
-    }
   };
   // wait for slot e, then read this thread's vectors of every leaf into rv
   auto receive = [&](int e) {
@@ -714,7 +657,6 @@ __global__ void __launch_bounds__(THREADS, 1) k2_cluster_kernel(Args<T> a) {
     for (int k = 0; k < nsteps; ++k, ++ex) {
       const int d = 1 << k;
       put(0, rank ^ d, ex);
-      flush(rank ^ d, ex, -1, 0);
       receive(ex);
       fold(0, true, (rank & d) != 0);  // partner lower: combine(recv, acc)
     }
@@ -722,7 +664,6 @@ __global__ void __launch_bounds__(THREADS, 1) k2_cluster_kernel(Args<T> a) {
     if (!a.inclusive) {
       // structural entry shift: rank r starts from x_{r-1}, rank 0 from zero
       put(0, (rank + 1) % p, ex);
-      flush((rank + 1) % p, ex, -1, 0);
       receive(ex);
       for (int l = 0; l < L; ++l)
         for (int j = 0; j < VECS; ++j)
@@ -735,7 +676,6 @@ __global__ void __launch_bounds__(THREADS, 1) k2_cluster_kernel(Args<T> a) {
       put(0, up, ex);
       // full duplex: both streams' puts before either wait
       if (KIND == KIND_FUSED) put(1, down, ex + 1);
-      flush(up, ex, KIND == KIND_FUSED ? down : -1, ex + 1);
       receive(ex);
       fold(0, rank >= d, true);
       if (KIND == KIND_FUSED) {
@@ -750,17 +690,16 @@ __global__ void __launch_bounds__(THREADS, 1) k2_cluster_kernel(Args<T> a) {
   // closing barrier (no CTA leaves while a peer may still write into its
   // slots) can be entered here and left at the end.
   if (KIND != KIND_FUSED) {
-    if (SPLIT_SYNC) cluster_arrive_relaxed();
+    cluster_arrive_relaxed();
     store(a.y, acc[0]);
   } else {
     // fused exits: inclusive total = combine(pre, suffix of rank r+1 or
     // zero); exclusive total = combine(pre, suf) and rank 0's scan is zero
     if (a.inclusive) {
       put(1, (rank - 1 + p) % p, ex);
-      flush((rank - 1 + p) % p, ex, -1, 0);
       receive(ex);
     }
-    if (SPLIT_SYNC) cluster_arrive_relaxed();
+    cluster_arrive_relaxed();
     if (!a.inclusive) {
       for (int l = 0; l < L; ++l)
         for (int j = 0; j < VECS; ++j)
@@ -784,7 +723,6 @@ __global__ void __launch_bounds__(THREADS, 1) k2_cluster_kernel(Args<T> a) {
     store(a.t, tot);
     store(a.y, acc[0]);
   }
-  if (!SPLIT_SYNC) cluster_arrive_release();
   cluster_wait();  // no CTA leaves while a peer may still address its slots
 }
 

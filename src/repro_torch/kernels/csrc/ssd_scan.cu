@@ -17,24 +17,27 @@
 // * chunked (k4_chunked_kernel), for T of at least two chunks. One thread
 //   walking one (n, d) column through all of T gives only N * D threads
 //   (12,288 at Mamba2-130m width): far too few bytes in flight for HBM.
-//   Cutting time into chunks of L = K4_STEPS * K4_TIME_WARPS steps raises the
-//   parallelism to N * D * T / L, and a decoupled look-back across blocks
+//   Cutting time into chunks of CHUNK = STEPS * TW steps raises the
+//   parallelism to N * D * T / CHUNK, and a decoupled look-back across blocks
 //   keeps it to one pass: a and b are read once, h is written once.
-//   - A block owns D_TILE = 32 * V * K4_FEATURE_WARPS features of one n and
-//     one time chunk, V = K4_VEC_BYTES / itemsize values a load (4 floats or
-//     8 bf16 / fp16 in 16 bytes): 256 features in float32, 512 in half
-//     types, 64 steps, 256 threads. A thread holds its K4_STEPS steps x V
-//     features of a and b in registers, all loaded before any arithmetic.
+//   - A block owns D_TILE = 32 * V * FW features of one n and one time
+//     chunk, V = VEC_BYTES / itemsize values a load (4 floats or 8 bf16 /
+//     fp16 in 16 bytes): 256 features in float32, 512 in half types, 64
+//     steps, 256 threads. A thread holds its STEPS steps x V features of a
+//     and b in registers, all loaded before any arithmetic. Staging them
+//     through shared memory with cp.async instead took 255.1 us f32 and
+//     152.5 bf16 against the registers' 240.7 and 138.4 at Mamba2-130m's
+//     (8, 4096, 1536) (PR 17's chip runs).
 //   - Phase 1: each warp folds its steps, in time order, into one
 //     (decay product, state) pair a feature; the warps' pairs combine, in
 //     time order, into the block's pair (A_c, B_c).
 //   - Phase 2, the look-back: blocks take tile ids from an atomic ticket, so
 //     a block waits only on blocks that already hold a lower ticket and are
-//     running. The column (n, d-tile) varies fastest (K4_ORDER 1): a chunk's
+//     running. The column (n, d-tile) varies fastest: a chunk's
 //     predecessor started a few microseconds earlier and has mostly
 //     published its inclusive state when it is read, and the blocks in
-//     flight read whole rows of a and b; chunk-fastest tickets (K4_ORDER 0)
-//     were slower at Mamba2-130m's shape (testing/k4_ablation.py). Each
+//     flight read whole rows of a and b; chunk-fastest tickets took 280.2 us
+//     f32 and 162.4 bf16 at Mamba2-130m's shape (PR 17's chip runs). Each
 //     (tile, feature warp) has a status word (not ready, aggregate,
 //     inclusive); its values (A_c, B_c, then the inclusive state) are
 //     stored before it, and it is stored with st.release.gpu and read with
@@ -55,8 +58,7 @@
 //     arithmetic below and stores h as vectors.
 //   A ragged last chunk is filled in registers with a = 1, b = 0 (no load, no
 //   store). D % V != 0, or a pointer off 16-byte alignment, takes the one-value
-//   instance. K4_STAGE=1 stages a and b through shared memory with cp.async
-//   instead of registers (an ablation switch; off as shipped).
+//   instance.
 // * column (k4_column_kernel, the first port's kernel), for T under two
 //   chunks, where there is nothing to look back on: one thread a (n, d)
 //   column walking T, the next COLUMN_UNROLL steps' loads issued first.
@@ -73,41 +75,22 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
-#ifndef K4_STEPS
-#define K4_STEPS 16  // time steps a warp holds
-#endif
-#ifndef K4_TIME_WARPS
-#define K4_TIME_WARPS 4  // warps along time: L = K4_STEPS * K4_TIME_WARPS
-#endif
-#ifndef K4_FEATURE_WARPS
-#define K4_FEATURE_WARPS 2  // warps along features: D_TILE = 32 * values a load * this
-#endif
-#ifndef K4_VEC_BYTES
-#define K4_VEC_BYTES 16  // bytes a thread loads at once: 4 floats, 8 bf16 / fp16
-#endif
-#ifndef K4_STAGE
-#define K4_STAGE 0  // 1: a and b staged through shared memory by cp.async
-#endif
-#ifndef K4_ORDER
-#define K4_ORDER 1  // ticket order: 0 chunk fastest within a column, 1 column fastest
-#endif
-
 namespace {
 
 enum DType { DT_FLOAT32 = 1, DT_BFLOAT16 = 2, DT_FLOAT16 = 3 };
 enum PathCode { PATH_COLUMN = 0, PATH_CHUNKED = 1 };
 enum TileState : unsigned { NOT_READY = 0, AGGREGATE = 1, INCLUSIVE = 2 };
 
-constexpr int STEPS = K4_STEPS;
-constexpr int TW = K4_TIME_WARPS;
-constexpr int FW = K4_FEATURE_WARPS;
-constexpr int VEC_BYTES = K4_VEC_BYTES;
-constexpr int CHUNK = STEPS * TW;
+// the design (kernels/ssd_scan.py plans with these)
+constexpr int STEPS = 16;      // time steps a warp holds
+constexpr int TW = 4;          // warps along time
+constexpr int FW = 2;          // warps along features: D_TILE = 32 * values a load * FW
+constexpr int VEC_BYTES = 16;  // bytes a thread loads at once: 4 floats, 8 bf16 / fp16
+constexpr int CHUNK = STEPS * TW;  // time steps a block
 constexpr int THREADS = 32 * TW * FW;
 constexpr int COLUMN_UNROLL = 8;
 // scratch words before the tiles' status words: the ticket, the timeout
 constexpr int HEAD_WORDS = 2;
-static_assert(VEC_BYTES == 4 || VEC_BYTES == 8 || VEC_BYTES == 16, "K4_VEC_BYTES: 4, 8 or 16");
 static_assert(THREADS <= 1024, "too many threads a block");
 
 template <typename T> struct Io;
@@ -244,21 +227,6 @@ __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
   return v;
 }
 
-template <int BYTES>
-__device__ __forceinline__ void copy_async(void* smem, const void* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(gmem) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(dst), "l"(gmem), "n"(BYTES)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void copy_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
-}
-
 // (A, B) <- (A, B) o (x, y): the map h -> A h + B applied after h -> x h + y
 __device__ __forceinline__ void compose(float& A, float& B, float x, float y) {
   B = __fadd_rn(__fmul_rn(A, y), B);
@@ -278,13 +246,9 @@ __global__ void __launch_bounds__(THREADS) k4_chunked_kernel(
     long long tiles, unsigned* __restrict__ ints, float* __restrict__ values,
     long long timeout_cycles) {
   constexpr int DT = 32 * V * FW;
-  constexpr int BYTES = V * (int)sizeof(T);
-  constexpr bool STAGED = K4_STAGE != 0 && BYTES >= 4;  // cp.async moves 4, 8 or 16 bytes
-  constexpr int ROW = DT / V;  // vectors in a row of the tile
   __shared__ float s_wa[TW][DT], s_wb[TW][DT];  // each warp's pair a feature
   __shared__ float s_carry[DT];                 // the block's carry-in
   __shared__ long long s_tile;
-  extern __shared__ __align__(16) unsigned char s_stage[];  // K4_STAGE: a, then b
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tw = warp / FW, fw = warp % FW;
@@ -296,11 +260,9 @@ __global__ void __launch_bounds__(THREADS) k4_chunked_kernel(
   // the tile of chunk c of column col, in ticket order: a chunk's
   // predecessors always hold lower tickets
   const long long cols = tiles / chunks;
-  auto slot = [&](long long column, long long c) -> long long {
-    return K4_ORDER == 0 ? column * chunks + c : c * cols + column;
-  };
-  const long long chunk = K4_ORDER == 0 ? tile % chunks : tile / cols;
-  const long long col = K4_ORDER == 0 ? tile / chunks : tile % cols;
+  auto slot = [&](long long column, long long c) -> long long { return c * cols + column; };
+  const long long chunk = tile / cols;
+  const long long col = tile % cols;
   const long long n = col / dtiles;
   const long long d0 = col % dtiles * DT + f;
   const bool live = d0 < D;  // V > 1 only where D % V == 0: whole vectors
@@ -309,41 +271,17 @@ __global__ void __launch_bounds__(THREADS) k4_chunked_kernel(
   const bool has_successor = chunk + 1 < chunks;
 
   // ---- loads: every step's a and b before any arithmetic ----
-  Vec<T, V> ra[STAGED ? 1 : STEPS], rb[STAGED ? 1 : STEPS];
-  Vec<T, V>* const sa = reinterpret_cast<Vec<T, V>*>(s_stage) + tw * STEPS * ROW + f / V;
-  Vec<T, V>* const sb = sa + CHUNK * ROW;
-  if constexpr (STAGED) {
+  Vec<T, V> ra[STEPS], rb[STEPS];
 #pragma unroll
-    for (int s = 0; s < STEPS; ++s) {
-      if (live && t0 + s < T_) {
-        copy_async<BYTES>(sa + s * ROW, a + base + s * D);
-        copy_async<BYTES>(sb + s * ROW, b + base + s * D);
-      } else {
-        sa[s * ROW].fill(1.0f);
-        sb[s * ROW].fill(0.0f);
-      }
-    }
-    copy_async_wait_all();  // this thread reads only what it copied
-  } else {
-#pragma unroll
-    for (int s = 0; s < STEPS; ++s) {
-      if (live && t0 + s < T_) {
-        ra[s].load(a + base + s * D);
-        rb[s].load(b + base + s * D);
-      } else {
-        ra[s].fill(1.0f);
-        rb[s].fill(0.0f);
-      }
+  for (int s = 0; s < STEPS; ++s) {
+    if (live && t0 + s < T_) {
+      ra[s].load(a + base + s * D);
+      rb[s].load(b + base + s * D);
+    } else {
+      ra[s].fill(1.0f);
+      rb[s].fill(0.0f);
     }
   }
-  auto step_a = [&](int s) -> const Vec<T, V>& {
-    if constexpr (STAGED) return sa[s * ROW];
-    else return ra[s];
-  };
-  auto step_b = [&](int s) -> const Vec<T, V>& {
-    if constexpr (STAGED) return sb[s * ROW];
-    else return rb[s];
-  };
 
   // ---- phase 1: the warp's pair, then the block's ----
   {
@@ -352,8 +290,8 @@ __global__ void __launch_bounds__(THREADS) k4_chunked_kernel(
     for (int k = 0; k < V; ++k) { A[k] = 1.0f; B[k] = 0.0f; }
 #pragma unroll
     for (int s = 0; s < STEPS; ++s) {
-      const Vec<T, V>& x = step_a(s);
-      const Vec<T, V>& y = step_b(s);
+      const Vec<T, V>& x = ra[s];
+      const Vec<T, V>& y = rb[s];
 #pragma unroll
       for (int k = 0; k < V; ++k) {
         const float ak = x.get(k);
@@ -488,8 +426,8 @@ __global__ void __launch_bounds__(THREADS) k4_chunked_kernel(
   }
 #pragma unroll
   for (int s = 0; s < STEPS; ++s) {
-    const Vec<T, V>& x = step_a(s);
-    const Vec<T, V>& y = step_b(s);
+    const Vec<T, V>& x = ra[s];
+    const Vec<T, V>& y = rb[s];
 #pragma unroll
     for (int k = 0; k < V; ++k) hs[k] = __fadd_rn(__fmul_rn(x.get(k), hs[k]), y.get(k));
     if (live && t0 + s < T_) {
@@ -547,19 +485,12 @@ struct Call {
 template <typename T, int V>
 int launch_chunked(const Call& c) {
   constexpr int DT = 32 * V * FW;
-  constexpr bool STAGED = K4_STAGE != 0 && V * (int)sizeof(T) >= 4;
   if (c.d_tile != DT || c.chunk != CHUNK || (c.D % V) != 0) return -1;
   if (c.ints == nullptr || c.values == nullptr) return -1;
   const long long dtiles = (c.D + DT - 1) / DT;
   const long long chunks = (c.T + CHUNK - 1) / CHUNK;
   if (chunks < 2 || c.N * dtiles * chunks != c.tiles || c.tiles > 0x7fffffffLL) return -2;
-  const int smem = STAGED ? 2 * CHUNK * DT * (int)sizeof(T) : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        k4_chunked_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  k4_chunked_kernel<T, V><<<(unsigned)c.tiles, THREADS, smem, c.stream>>>(
+  k4_chunked_kernel<T, V><<<(unsigned)c.tiles, THREADS, 0, c.stream>>>(
       static_cast<const T*>(c.a), static_cast<const T*>(c.b), static_cast<const T*>(c.h0),
       static_cast<T*>(c.h), c.T, c.D, chunks, dtiles, c.tiles, c.ints, c.values,
       c.timeout_cycles);
@@ -611,25 +542,13 @@ int clock_khz() {
 
 }  // namespace
 
-// The compile-time design of this build: steps a warp, time warps, feature
-// warps, the vector width and whether a and b are staged through shared
-// memory (kernels/ssd_scan.py plans with these).
-extern "C" void k4_ssd_build(int* out) {
-  out[0] = STEPS;
-  out[1] = TW;
-  out[2] = FW;
-  out[3] = VEC_BYTES;
-  out[4] = K4_STAGE;
-  out[5] = K4_ORDER;
-}
-
 // h[n, t, d] for contiguous (N, T, D) a, b and h; h0 is (N, D) or null.
-// path 1 (chunked) takes vec (K4_VEC_BYTES / itemsize, or 1), d_tile and
-// chunk as plan_launch gives them, and ints (2 + tiles * K4_FEATURE_WARPS
+// path 1 (chunked) takes vec (VEC_BYTES / itemsize, or 1), d_tile and
+// chunk as plan_launch gives them, and ints (2 + tiles * FW
 // words, zero) and values (3 * d_tile * tiles floats) as scratch; path 0 (column) takes d_tile as its
 // threads a block. tiles is the grid the plan counted. Returns 0 on a
-// launched kernel, -1 for a dtype, path or plan that does not match this
-// build, -2 for a grid it cannot launch, else the CUDA error of the launch;
+// launched kernel, -1 for a dtype, path or plan that does not match the
+// kernels, -2 for a grid they cannot launch, else the CUDA error of the launch;
 // *launches is set to the kernels launched.
 extern "C" int k4_ssd_scan(int dtype, int path, int vec, int d_tile, int chunk, const void* a,
                            const void* b, const void* h0, void* h, long long N, long long T_,

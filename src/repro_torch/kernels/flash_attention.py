@@ -51,9 +51,10 @@ DECODE_MAX_SQ = 16
 SMS = 132
 DECODE_TARGET_BLOCKS = 4 * SMS
 #: query rows and keys a block of the tensor-core kernel takes
+#: (``csrc/flash_attention.cu``'s ``tc::BQ`` and ``tc::BKV``)
 TC_BLOCK_Q = 128
 TC_BLOCK_KV = 128
-#: the simt kernel's tiles
+#: query rows a block of the simt kernel takes (its ``BQ``)
 SIMT_BLOCK_Q = 64
 
 
@@ -137,10 +138,11 @@ def plan_launch(
                       BH * _cdiv(Sq, SIMT_BLOCK_Q))
 
 
-def bind(lib: ctypes.CDLL):
-    """The C entry point ``k5_flash_attention`` of a loaded library, its
-    argument types set."""
-    fn = lib.k5_flash_attention
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The C entry point ``k5_flash_attention`` of the library built from
+    ``csrc``, its argument types set."""
+    fn = _build.load_library("flash_attention").k5_flash_attention
     fn.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -153,12 +155,6 @@ def bind(lib: ctypes.CDLL):
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    """The C entry point of the library built from ``csrc``."""
-    return bind(_build.load_library("flash_attention"))
-
-
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """A contiguous tensor whose data starts on 16 bytes (TMA and the
     16-byte copies need it)."""
@@ -168,11 +164,10 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _launch(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-    window: int, q_offset: int, scale: Optional[float] = None, entry=None,
+    window: int, q_offset: int, scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Run the planned kernels through ``entry`` (default: the library
-    built from ``csrc``; another build's :func:`bind` for a comparison);
-    the scores are ``(q . k) * scale`` (None: ``1 / sqrt(D)``)."""
+    """Run the planned kernels of the library built from ``csrc``; the
+    scores are ``(q . k) * scale`` (None: ``1 / sqrt(D)``)."""
     global launches
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("the flash kernels need q, k and v of one dtype")
@@ -194,11 +189,10 @@ def _launch(
     if plan.launches == 2:
         work = torch.empty(BH * plan.splits * Sq * (D + 2), device=q.device,
                            dtype=torch.float32)
-    entry = entry or _entry()
     made = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = entry(
+        rc = _entry()(
             _DTYPE_CODES[q.dtype], _PATH_CODES[plan.path], q.data_ptr(),
             k.data_ptr(), v.data_ptr(), o.data_ptr(), work.data_ptr(), BH, Sq,
             Skv, D, int(causal), int(window), int(q_offset), scale,

@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import torch
@@ -78,8 +78,8 @@ _DTYPE_CODES = {
 _PATH_CODES = {"rows": 0, "tiles": 1, "lookback": 2}
 #: the longest row, in bytes, that the rows path takes (eight of its
 #: 1 KiB batches): at 2048 float32 rows on an H100 the rows path beat the
-#: tiles path at 4 and 8 KiB a row and lost at 12 and 16 KiB
-#: (``testing/k3_ablation.py``'s threshold readings)
+#: tiles path at 4 and 8 KiB a row and lost at 12 and 16 KiB (PR 24's chip
+#: runs)
 ROWS_MAX_BYTES = 8192
 #: the fewest rows that the tiles path takes: two per SM of an H100 (132);
 #: fewer long rows leave SMs idle and take the look-back instead
@@ -88,30 +88,15 @@ TILES_MIN_ROWS = 264
 #: timeout: a look-back wait past 2 s traps, so the next synchronisation
 #: raises instead of hanging)
 HEAD_WORDS = 2
-
-
-@dataclass(frozen=True)
-class Build:
-    """The compile-time design of a build of ``csrc/prefix_scan.cu`` (its
-    ``K3_*`` macros, which ``k3_scan_build`` reports)."""
-
-    vec_bytes: int = 16      # bytes a lane loads at once (K3_VEC_BYTES)
-    row_lanes: int = 32      # lanes a row on the rows path (K3_ROW_LANES)
-    row_warps: int = 8       # warps a rows block (K3_ROW_WARPS)
-    row_segs: int = 2        # segments a row group loads at once (K3_ROW_SEGS)
-    tile_threads: int = 256  # threads a tiles block (K3_TILE_THREADS)
-    tile_vecs: int = 2       # vectors a thread a tile (K3_TILE_VECS)
-    prefetch: int = 1        # next batch's or tile's loads in flight (K3_PREFETCH)
-    chunk_threads: int = 128  # threads a look-back block (K3_CHUNK_THREADS)
-    chunk_vecs: int = 8      # vectors a thread a look-back chunk (K3_CHUNK_VECS)
-
-    def vec(self, itemsize: int) -> int:
-        """Elements a lane loads at once on the vector variant."""
-        return max(1, self.vec_bytes // itemsize)
-
-
-#: the design the shipped source compiles to
-SHIPPED = Build()
+#: the kernels' design (``csrc/prefix_scan.cu``'s constants of the same
+#: names): bytes a lane loads at once on the vector variant, threads a block
+#: of each path (a warp a row on the rows path) and vectors a thread holds a
+#: look-back chunk
+VEC_BYTES = 16
+ROW_THREADS = 256
+TILE_THREADS = 256
+CHUNK_THREADS = 128
+CHUNK_VECS = 8
 
 
 @dataclass(frozen=True)
@@ -135,7 +120,7 @@ def _cdiv(a: int, b: int) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def _plan(R: int, L: int, dtype: torch.dtype, op: str, reverse: bool,
-          aligned: bool, build: Build, path: Optional[str],
+          aligned: bool, path: Optional[str],
           vec: Optional[int]) -> LaunchPlan:
     if dtype not in _DTYPE_CODES:
         raise ValueError(
@@ -152,7 +137,7 @@ def _plan(R: int, L: int, dtype: torch.dtype, op: str, reverse: bool,
             path = "tiles" if R >= TILES_MIN_ROWS else "lookback"
     elif path not in _PATH_CODES:
         raise ValueError(f"no K3 path {path!r}; paths: {sorted(_PATH_CODES)}")
-    wide = build.vec(dtype.itemsize)
+    wide = max(1, VEC_BYTES // dtype.itemsize)
     if vec is None:
         vec = wide if aligned and L % wide == 0 else 1
     elif vec not in (1, wide):
@@ -160,100 +145,74 @@ def _plan(R: int, L: int, dtype: torch.dtype, op: str, reverse: bool,
     elif L % vec:
         raise ValueError(f"a vector of {vec} does not divide L = {L}")
     if path == "rows":
-        threads = 32 * build.row_warps
-        per_block = threads // build.row_lanes
-        return LaunchPlan("rows", vec, threads, per_block, L, 1,
+        per_block = ROW_THREADS // 32
+        return LaunchPlan("rows", vec, ROW_THREADS, per_block, L, 1,
                           _cdiv(R, per_block), 0)
     if path == "tiles":
-        return LaunchPlan("tiles", vec, build.tile_threads, 1, L, 1, R, 0)
-    chunk = build.chunk_threads * vec * build.chunk_vecs
+        return LaunchPlan("tiles", vec, TILE_THREADS, 1, L, 1, R, 0)
+    chunk = CHUNK_THREADS * vec * CHUNK_VECS
     chunks = _cdiv(L, chunk)
-    return LaunchPlan("lookback", vec, build.chunk_threads, 1, chunk, chunks,
+    return LaunchPlan("lookback", vec, CHUNK_THREADS, 1, chunk, chunks,
                       R * chunks, HEAD_WORDS + R * chunks)
 
 
 def plan_launch(
     R: int, L: int, dtype: torch.dtype, op: str = "add",
     exclusive: bool = False, reverse: bool = False, ptrs: Sequence[int] = (),
-    *, build: Build = SHIPPED, path: Optional[str] = None,
-    vec: Optional[int] = None,
+    *, path: Optional[str] = None, vec: Optional[int] = None,
 ) -> LaunchPlan:
     """The path, vector width, block, grid and scratch of one call on a
     contiguous ``(R, L)`` tensor whose input and output start at ``ptrs``;
-    :func:`_launch` follows it. The vector variant loads ``build.vec_bytes``
+    :func:`_launch` follows it. The vector variant loads :data:`VEC_BYTES`
     at once where ``L`` is a multiple of that many elements and every
     pointer is aligned to that many bytes, else one element. ``exclusive``
     changes nothing: the shift is in registers. ``path`` and ``vec`` name a
     path or width instead, for a comparison only."""
     del exclusive
-    aligned = not any(p % build.vec_bytes for p in ptrs)
-    return _plan(R, L, dtype, op, reverse, aligned, build, path, vec)
+    aligned = not any(p % VEC_BYTES for p in ptrs)
+    return _plan(R, L, dtype, op, reverse, aligned, path, vec)
 
 
-@dataclass(frozen=True)
-class Entry:
-    """A loaded build's C entry point, the design it was compiled to, and
-    the calls planned for it so far (see :func:`_call`)."""
-
-    fn: object
-    build: Build
-    calls: dict = field(default_factory=dict, compare=False, repr=False)
-
-
-def bind(lib: ctypes.CDLL) -> Entry:
-    """The entry point ``k3_prefix_scan`` of a loaded library, its argument
-    types set, with the build's design read from ``k3_scan_build``."""
-    design = (ctypes.c_int * 9)()
-    lib.k3_scan_build.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.k3_scan_build.restype = None
-    lib.k3_scan_build(design)
-    fn = lib.k3_prefix_scan
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The C entry point ``k3_prefix_scan`` of the library built from
+    ``csrc``, its argument types set."""
+    fn = _build.load_library("prefix_scan").k3_prefix_scan
     # (code, x, y, R, L, ws, stream): every argument declared a pointer,
     # which ctypes converts from an int fastest; the integers (long long in
     # C) pass in the same 64-bit registers on an LP64 host
     fn.argtypes = [ctypes.c_void_p] * 7
     fn.restype = ctypes.c_int
-    return Entry(fn, Build(*design))
+    return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _entry() -> Entry:
-    """The entry point of the library built from ``csrc``, whose design must
-    be the one :data:`SHIPPED` plans for."""
-    entry = bind(_build.load_library("prefix_scan"))
-    if entry.build != SHIPPED:
-        raise RuntimeError(
-            f"prefix_scan.cu compiles to {entry.build}, the wrapper plans for "
-            f"{SHIPPED}"
-        )
-    return entry
+#: the calls planned so far (see :func:`_call`)
+_CALLS: dict = {}
 
 
-def _call(entry: Entry, R: int, L: int, dtype: torch.dtype, op: str,
-          exclusive: bool, reverse: bool, aligned: bool,
-          path: Optional[str], vec: Optional[int]):
+def _call(R: int, L: int, dtype: torch.dtype, op: str, exclusive: bool,
+          reverse: bool, aligned: bool, path: Optional[str],
+          vec: Optional[int]):
     """The plan of a call and the call packed into the C entry's one word
     (``csrc/prefix_scan.cu``: path, op, dtype, vector width, exclusive,
-    reverse, grid), kept on ``entry`` for the calls to come."""
+    reverse, grid), kept for the calls to come."""
     key = (R, L, dtype, op, exclusive, reverse, aligned, path, vec)
-    hit = entry.calls.get(key)
+    hit = _CALLS.get(key)
     if hit is None:
-        plan = _plan(R, L, dtype, op, reverse, aligned, entry.build, path, vec)
+        plan = _plan(R, L, dtype, op, reverse, aligned, path, vec)
         code = (_PATH_CODES[plan.path] | _OP_CODES[op] << 2
                 | _DTYPE_CODES[dtype] << 4 | plan.vec << 7
                 | int(exclusive) << 12 | int(reverse) << 13
                 | plan.blocks << 16)
-        hit = entry.calls[key] = (plan, code)
+        hit = _CALLS[key] = (plan, code)
     return hit
 
 
 def _launch(
     x: torch.Tensor, op: str, exclusive: bool, reverse: bool, *,
     path: Optional[str] = None, vec: Optional[int] = None,
-    entry: Optional[Entry] = None,
 ) -> torch.Tensor:
-    """Run the planned kernel through ``entry`` (default: the library built
-    from ``csrc``; another build's :func:`bind` for a comparison)."""
+    """Run the planned kernel of the library built from ``csrc``."""
     global launches, reverse_launches
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(
@@ -270,14 +229,13 @@ def _launch(
             f"the scan's input lies on cuda:{device}, the current device is "
             f"cuda:{torch.cuda.current_device()}"
         )
-    entry = entry or _entry()
     xp, yp = x.data_ptr(), y.data_ptr()
-    plan, code = _call(entry, R, L, x.dtype, op, exclusive, reverse,
-                       not (xp | yp) % entry.build.vec_bytes, path, vec)
+    plan, code = _call(R, L, x.dtype, op, exclusive, reverse,
+                       not (xp | yp) % VEC_BYTES, path, vec)
     ws = None
     if plan.status_words:
         ws = torch.empty(plan.status_words, dtype=torch.int64, device=x.device)
-    rc = entry.fn(code, xp, yp, R, L, None if ws is None else ws.data_ptr(),
+    rc = _entry()(code, xp, yp, R, L, None if ws is None else ws.data_ptr(),
                   _build.raw_stream(device))
     if rc != 0:
         raise RuntimeError(

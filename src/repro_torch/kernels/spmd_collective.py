@@ -99,8 +99,9 @@ _PATH_CODES = {"cluster": 0, "flags": 1, "peers": 2}
 #: ranks the cluster path takes: a cluster of more than 8 CTAs is beyond
 #: the portable size, and 16 is Hopper's largest
 CLUSTER_MIN_P, CLUSTER_MAX_P = 2, 16
-#: threads a CTA of the cluster path; each carries V vectors of 16 bytes a
-#: leaf (:func:`cluster_row_vecs`)
+#: threads a CTA of the cluster path (``csrc/spmd_collective.cu``'s
+#: ``cl::THREADS``); each carries V vectors of 16 bytes a leaf
+#: (:func:`cluster_row_vecs`)
 CLUSTER_THREADS = 128
 #: the flags kernel's tile: 256 threads x 4 elements
 FLAGS_TILE = 1024
@@ -183,64 +184,53 @@ def comm_phase_spmd_plain(
 # ---------------------------------------------------------------------------
 
 
-def bind(lib: ctypes.CDLL):
-    """The C entry point ``k2_spmd_comm`` of a loaded library, its argument
-    types set."""
-    fn = lib.k2_spmd_comm
-    if fn.argtypes is None:  # first use: declare the signature
-        fn.argtypes = (
-            [ctypes.c_int] * 6
-            + [ctypes.c_longlong] * 2
-            + [ctypes.c_int] * 2
-            + [ctypes.c_void_p] * 12
-            + [ctypes.c_uint, ctypes.c_double, ctypes.c_void_p,
-               ctypes.POINTER(ctypes.c_int)]
-        )
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def bind_peers(lib: ctypes.CDLL):
-    """The peers path's C entry points of a loaded library, their argument
-    types set: ``k2_spmd_peers`` and the IPC calls ``k2_ipc_alloc``,
-    ``k2_ipc_open``, ``k2_ipc_close`` and ``k2_ipc_free``."""
-    fn = lib.k2_spmd_peers
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_int] * 6
-            + [ctypes.c_longlong] * 2
-            + [ctypes.c_void_p] * 13
-            + [ctypes.c_uint, ctypes.c_uint, ctypes.c_double,
-               ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-        )
-        fn.restype = ctypes.c_int
-        ptr = ctypes.POINTER(ctypes.c_void_p)
-        for name, args in (
-            ("k2_ipc_alloc", [ctypes.c_int, ctypes.c_size_t, ptr,
-                              ctypes.c_char_p]),
-            ("k2_ipc_open", [ctypes.c_int, ctypes.c_char_p, ptr]),
-            ("k2_ipc_close", [ctypes.c_int, ctypes.c_void_p]),
-            ("k2_ipc_free", [ctypes.c_int, ctypes.c_void_p]),
-        ):
-            getattr(lib, name).argtypes = args
-            getattr(lib, name).restype = ctypes.c_int
-        lib.k2_ipc_handle_bytes.restype = ctypes.c_int
-    return lib
-
-
 @functools.lru_cache(maxsize=None)
 def _entry():
-    """The C entry point of the library built from ``csrc``."""
+    """The C entry point ``k2_spmd_comm`` of the library built from
+    ``csrc``, its argument types set."""
     from repro_torch.kernels._build import load_library
 
-    return bind(load_library("spmd_collective"))
+    fn = load_library("spmd_collective").k2_spmd_comm
+    fn.argtypes = (
+        [ctypes.c_int] * 6
+        + [ctypes.c_longlong] * 2
+        + [ctypes.c_int] * 2
+        + [ctypes.c_void_p] * 12
+        + [ctypes.c_uint, ctypes.c_double, ctypes.c_void_p,
+           ctypes.POINTER(ctypes.c_int)]
+    )
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
 def _peers_library() -> ctypes.CDLL:
+    """The library built from ``csrc`` with the peers path's C entry points
+    typed: ``k2_spmd_peers`` and the IPC calls ``k2_ipc_alloc``,
+    ``k2_ipc_open``, ``k2_ipc_close`` and ``k2_ipc_free``."""
     from repro_torch.kernels._build import load_library
 
-    return bind_peers(load_library("spmd_collective"))
+    lib = load_library("spmd_collective")
+    lib.k2_spmd_peers.argtypes = (
+        [ctypes.c_int] * 6
+        + [ctypes.c_longlong] * 2
+        + [ctypes.c_void_p] * 13
+        + [ctypes.c_uint, ctypes.c_uint, ctypes.c_double,
+           ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    )
+    lib.k2_spmd_peers.restype = ctypes.c_int
+    ptr = ctypes.POINTER(ctypes.c_void_p)
+    for name, args in (
+        ("k2_ipc_alloc", [ctypes.c_int, ctypes.c_size_t, ptr,
+                          ctypes.c_char_p]),
+        ("k2_ipc_open", [ctypes.c_int, ctypes.c_char_p, ptr]),
+        ("k2_ipc_close", [ctypes.c_int, ctypes.c_void_p]),
+        ("k2_ipc_free", [ctypes.c_int, ctypes.c_void_p]),
+    ):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = ctypes.c_int
+    lib.k2_ipc_handle_bytes.restype = ctypes.c_int
+    return lib
 
 
 def exchanges(kind: PhaseKind, p: int, inclusive: bool) -> int:

@@ -47,32 +47,15 @@ HEAD_WORDS = 2
 #: a look-back wait longer than this traps (the context is lost, the next
 #: synchronisation raises) instead of hanging
 TIMEOUT_S = 2.0
-
-
-@dataclass(frozen=True)
-class Build:
-    """The compile-time design of a build of ``csrc/ssd_scan.cu`` (its
-    ``K4_*`` macros, which ``k4_ssd_build`` reports)."""
-
-    steps: int = 16          # time steps a warp holds (K4_STEPS)
-    time_warps: int = 4      # warps along time (K4_TIME_WARPS)
-    feature_warps: int = 2   # warps along features (K4_FEATURE_WARPS)
-    vec_bytes: int = 16      # bytes a thread loads at once (K4_VEC_BYTES)
-    stage: int = 0           # 1: a and b staged by cp.async (K4_STAGE)
-    order: int = 1           # ticket order, 1: column fastest (K4_ORDER)
-
-    @property
-    def chunk(self) -> int:
-        """Time steps a block, L."""
-        return self.steps * self.time_warps
-
-    def d_tile(self, vec: int) -> int:
-        """Features a block at vector width ``vec``."""
-        return 32 * vec * self.feature_warps
-
-
-#: the design the shipped source compiles to
-SHIPPED = Build()
+#: the chunked kernel's design (``csrc/ssd_scan.cu``'s ``STEPS``, ``TW``,
+#: ``FW`` and ``VEC_BYTES``): time steps a warp holds, warps along time and
+#: along features, and bytes a thread loads at once
+STEPS = 16
+TIME_WARPS = 4
+FEATURE_WARPS = 2
+VEC_BYTES = 16
+#: time steps a block of the chunked path
+CHUNK = STEPS * TIME_WARPS
 
 
 @dataclass(frozen=True)
@@ -96,62 +79,52 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(N: int, T: int, D: int, path: str, vec: int, build: Build) -> LaunchPlan:
+def _plan(N: int, T: int, D: int, path: str, vec: int) -> LaunchPlan:
     if path == "column":
         blocks = N * _cdiv(D, COLUMN_THREADS)
         return LaunchPlan("column", 1, COLUMN_THREADS, T, 1, blocks,
                           COLUMN_THREADS, 1, 0, 0)
-    d_tile = build.d_tile(vec)
-    chunks = _cdiv(T, build.chunk)
+    d_tile = 32 * vec * FEATURE_WARPS
+    chunks = _cdiv(T, CHUNK)
     tiles = N * _cdiv(D, d_tile) * chunks
-    threads = 32 * build.time_warps * build.feature_warps
-    return LaunchPlan("chunked", vec, d_tile, build.chunk, chunks, tiles,
-                      threads, 1, HEAD_WORDS + tiles * build.feature_warps,
+    threads = 32 * TIME_WARPS * FEATURE_WARPS
+    return LaunchPlan("chunked", vec, d_tile, CHUNK, chunks, tiles,
+                      threads, 1, HEAD_WORDS + tiles * FEATURE_WARPS,
                       3 * d_tile * tiles)
 
 
 def plan_launch(
     N: int, T: int, D: int, dtype: torch.dtype, ptrs: Sequence[int] = (), *,
-    build: Build = SHIPPED, path: Optional[str] = None,
+    path: Optional[str] = None,
 ) -> LaunchPlan:
     """The path, tile, vector width, grid and scratch of one call on
     contiguous ``(N, T, D)`` operands whose data start at ``ptrs`` (a, b and
     h); :func:`_launch` follows it. ``T`` under two chunks takes the column
-    path; the chunked path loads ``build.vec_bytes`` at once (4 floats, 8
+    path; the chunked path loads :data:`VEC_BYTES` at once (4 floats, 8
     bf16 / fp16 values) where ``D`` is a multiple of that many values and
-    every pointer is aligned to that many bytes, else one value. ``path`` names a path instead, for a comparison only."""
+    every pointer is aligned to that many bytes, else one value. ``path``
+    names a path instead, for a comparison only."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(
             f"the SSD kernel takes {sorted(map(str, _DTYPE_CODES))}; got {dtype}"
         )
     if path is None:
-        path = "chunked" if T >= 2 * build.chunk else "column"
+        path = "chunked" if T >= 2 * CHUNK else "column"
     elif path not in _PATH_CODES:
         raise ValueError(f"no SSD path {path!r}; paths: {sorted(_PATH_CODES)}")
-    elif path == "chunked" and T < 2 * build.chunk:
-        raise ValueError(f"the chunked path needs T >= {2 * build.chunk}; got {T}")
-    vec = build.vec_bytes // dtype.itemsize
-    if path == "column" or D % vec or any(p % build.vec_bytes for p in ptrs):
+    elif path == "chunked" and T < 2 * CHUNK:
+        raise ValueError(f"the chunked path needs T >= {2 * CHUNK}; got {T}")
+    vec = VEC_BYTES // dtype.itemsize
+    if path == "column" or D % vec or any(p % VEC_BYTES for p in ptrs):
         vec = 1
-    return _plan(N, T, D, path, vec, build)
+    return _plan(N, T, D, path, vec)
 
 
-@dataclass(frozen=True)
-class Entry:
-    """A loaded build's C entry point and the design it was compiled to."""
-
-    fn: object
-    build: Build
-
-
-def bind(lib: ctypes.CDLL) -> Entry:
-    """The entry point ``k4_ssd_scan`` of a loaded library, its argument
-    types set, with the build's design read from ``k4_ssd_build``."""
-    design = (ctypes.c_int * 6)()
-    lib.k4_ssd_build.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.k4_ssd_build.restype = None
-    lib.k4_ssd_build(design)
-    fn = lib.k4_ssd_scan
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The C entry point ``k4_ssd_scan`` of the library built from
+    ``csrc``, its argument types set."""
+    fn = _build.load_library("ssd_scan").k4_ssd_scan
     fn.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -160,28 +133,14 @@ def bind(lib: ctypes.CDLL) -> Entry:
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
     ]
     fn.restype = ctypes.c_int
-    return Entry(fn, Build(*design))
-
-
-@functools.lru_cache(maxsize=None)
-def _entry() -> Entry:
-    """The entry point of the library built from ``csrc``, whose design must
-    be the one :data:`SHIPPED` plans for."""
-    entry = bind(_build.load_library("ssd_scan"))
-    if entry.build != SHIPPED:
-        raise RuntimeError(
-            f"ssd_scan.cu compiles to {entry.build}, the wrapper plans for "
-            f"{SHIPPED}"
-        )
-    return entry
+    return fn
 
 
 def _launch(
     a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor], *,
-    path: Optional[str] = None, entry: Optional[Entry] = None,
+    path: Optional[str] = None,
 ) -> torch.Tensor:
-    """Run the planned kernel through ``entry`` (default: the library built
-    from ``csrc``; another build's :func:`bind` for a comparison)."""
+    """Run the planned kernel of the library built from ``csrc``."""
     global launches
     if b.dtype not in _DTYPE_CODES:
         raise ValueError(
@@ -194,10 +153,8 @@ def _launch(
     h = torch.empty_like(b)
     if h.numel() == 0:
         return h
-    entry = entry or _entry()
     plan = plan_launch(N, T, D, b.dtype,
-                       (a.data_ptr(), b.data_ptr(), h.data_ptr()),
-                       build=entry.build, path=path)
+                       (a.data_ptr(), b.data_ptr(), h.data_ptr()), path=path)
     ints = values = None
     if plan.path == "chunked":
         ints = torch.zeros(plan.status_words, dtype=torch.int32, device=b.device)
@@ -206,7 +163,7 @@ def _launch(
     made = ctypes.c_int(0)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
-        rc = entry.fn(
+        rc = _entry()(
             _DTYPE_CODES[b.dtype], _PATH_CODES[plan.path], plan.vec,
             plan.d_tile, plan.chunk, a.data_ptr(), b.data_ptr(),
             None if h0 is None else h0.data_ptr(), h.data_ptr(), N, T, D,

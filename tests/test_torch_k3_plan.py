@@ -244,7 +244,7 @@ def _tol(op, dtype):
 
 
 def _wide(dtype) -> int:
-    return K3.SHIPPED.vec(np.dtype(dtype).itemsize)
+    return max(1, K3.VEC_BYTES // np.dtype(dtype).itemsize)
 
 
 #: small designs for the emulations, so that short rows already have many
@@ -442,7 +442,7 @@ def test_plan_at_the_models_shapes():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16, torch.int32, torch.int8])
 def test_plan_vector_width_follows_alignment_and_length(dtype):
-    wide = K3.SHIPPED.vec(dtype.itemsize)
+    wide = K3.VEC_BYTES // dtype.itemsize
     assert wide * dtype.itemsize == 16
     for R, L in ((8, 256), (8192, 8192), (1, 1 << 20)):
         assert K3.plan_launch(R, L, dtype, ptrs=(A16, A16)).vec == wide
@@ -492,20 +492,50 @@ def test_plan_rejects_what_no_kernel_takes(op):
         K3.plan_launch(8, 256, torch.float32, "min")
 
 
-def test_shipped_build_is_the_sources_default():
-    """The wrapper plans with :data:`SHIPPED`; the source's ``K3_*``
-    defaults must compile to the same design (on the card ``_entry``
-    checks the library's own report)."""
-    src = (Path(K3.__file__).parent / "csrc" / "prefix_scan.cu").read_text()
-    default = {name: int(value) for name, value in
-               re.findall(r"#define K3_(\w+) (\d+)", src)}
-    assert K3.Build(default["VEC_BYTES"], default["ROW_LANES"],
-                    default["ROW_WARPS"], default["ROW_SEGS"],
-                    default["TILE_THREADS"], default["TILE_VECS"],
-                    default["PREFETCH"], default["CHUNK_THREADS"],
-                    default["CHUNK_VECS"]) == K3.SHIPPED
-    # the source's look-back scratch head is the wrapper's
-    assert re.search(rf"HEAD_WORDS = {K3.HEAD_WORDS};", src)
+def _constants(name: str, start: str = "", end: str = "") -> dict:
+    """The ``constexpr int NAME = <integer>;`` values of ``csrc/<name>.cu``,
+    of its text from ``start`` up to ``end`` where given."""
+    src = (Path(K3.__file__).parent / "csrc" / f"{name}.cu").read_text()
+    src = src[src.index(start) if start else 0:src.index(end) if end else None]
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", src)}
+
+
+def _mirrors(kernel: str) -> dict:
+    """Each wrapper constant that mirrors a design value of its kernel's
+    source: (the wrapper's value, the source's)."""
+    if kernel == "k2":
+        K2 = importlib.import_module("repro_torch.kernels.spmd_collective")
+        cl = _constants("spmd_collective", "namespace cl {",
+                        "}  // namespace cl")
+        return {"CLUSTER_THREADS": (K2.CLUSTER_THREADS, cl["THREADS"])}
+    if kernel == "k3":
+        src = _constants("prefix_scan")
+        return {name: (getattr(K3, name), src[name]) for name in (
+            "VEC_BYTES", "ROW_THREADS", "TILE_THREADS", "CHUNK_THREADS",
+            "CHUNK_VECS", "HEAD_WORDS")}
+    if kernel == "k4":
+        K4 = importlib.import_module("repro_torch.kernels.ssd_scan")
+        src = _constants("ssd_scan")
+        return {"STEPS": (K4.STEPS, src["STEPS"]),
+                "TIME_WARPS": (K4.TIME_WARPS, src["TW"]),
+                "FEATURE_WARPS": (K4.FEATURE_WARPS, src["FW"]),
+                "VEC_BYTES": (K4.VEC_BYTES, src["VEC_BYTES"]),
+                "HEAD_WORDS": (K4.HEAD_WORDS, src["HEAD_WORDS"])}
+    K5 = importlib.import_module("repro_torch.kernels.flash_attention")
+    tc = _constants("flash_attention", "namespace tc {", "}  // namespace tc")
+    simt = _constants("flash_attention", end="namespace dec {")
+    return {"TC_BLOCK_Q": (K5.TC_BLOCK_Q, tc["BQ"]),
+            "TC_BLOCK_KV": (K5.TC_BLOCK_KV, tc["BKV"]),
+            "SIMT_BLOCK_Q": (K5.SIMT_BLOCK_Q, simt["BQ"])}
+
+
+@pytest.mark.parametrize("kernel", ["k2", "k3", "k4", "k5"])
+def test_shipped_build_is_the_sources_default(kernel):
+    """The wrappers of K2-K5 plan with constants that mirror their sources'
+    ``constexpr`` design values: each pair must agree."""
+    for name, (wrapper, source) in _mirrors(kernel).items():
+        assert wrapper == source, f"{kernel} {name}: {wrapper} != {source}"
 
 
 def test_cpu_calls_launch_nothing():

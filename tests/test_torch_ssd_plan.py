@@ -21,8 +21,6 @@ integer.
 """
 
 import importlib
-import re
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -36,8 +34,8 @@ from test_torch_interop import assert_same, to_both
 
 K4 = importlib.import_module("repro_torch.kernels.ssd_scan")
 
-L = K4.SHIPPED.chunk        # time steps a block
-SUB = K4.SHIPPED.steps      # time steps a warp
+L = K4.CHUNK                # time steps a block
+SUB = K4.STEPS              # time steps a warp
 TOL = 2e-3
 
 
@@ -239,7 +237,7 @@ def test_plan_at_mamba2_130m_width():
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_plan_grid_covers_every_tile_once(N, T, D, dtype):
     plan = K4.plan_launch(N, T, D, dtype)
-    assert plan.d_tile == 32 * plan.vec * K4.SHIPPED.feature_warps
+    assert plan.d_tile == 32 * plan.vec * K4.FEATURE_WARPS
     assert plan.chunks == -(-T // L)
     assert plan.blocks == N * -(-D // plan.d_tile) * plan.chunks
     # the last tile of a column starts inside it, and the tiles cover D
@@ -254,7 +252,7 @@ def test_plan_vector_width_follows_alignment_and_ragged_d(dtype):
     where D or a pointer does not allow them."""
     size = dtype.itemsize
     vec = 16 // size
-    warps = K4.SHIPPED.feature_warps
+    warps = K4.FEATURE_WARPS
     aligned = (0, 1 << 12, 1 << 20)
     plan = K4.plan_launch(2, 4096, 256, dtype, aligned)
     assert (plan.vec, plan.d_tile) == (vec, 32 * vec * warps)
@@ -286,18 +284,6 @@ def test_plan_rejects_what_no_kernel_takes():
     for dtype in (torch.float64, torch.int32):
         with pytest.raises(ValueError):
             K4.plan_launch(1, 4096, 64, dtype)
-
-
-def test_shipped_build_is_the_sources_default():
-    """The wrapper plans with :data:`SHIPPED`; the source's ``K4_*``
-    defaults must compile to the same design (on the card ``_entry``
-    checks the library's own report)."""
-    src = (Path(K4.__file__).parent / "csrc" / "ssd_scan.cu").read_text()
-    default = {name: int(value) for name, value in
-               re.findall(r"#define K4_(\w+) (\d+)", src)}
-    assert K4.Build(default["STEPS"], default["TIME_WARPS"],
-                    default["FEATURE_WARPS"], default["VEC_BYTES"],
-                    default["STAGE"], default["ORDER"]) == K4.SHIPPED
 
 
 def test_cpu_calls_launch_nothing():
