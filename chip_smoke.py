@@ -9,8 +9,8 @@ non-zero without printing a result:
 1. device   — the card, its power limit, TF32 off, every kernel library
               built from ``src/repro_torch/kernels/csrc`` with nvcc (one nvcc
               per source, all started together), ptxas registers and spills
-              (of every K1-K5 kernel; a spill in K1's register path, K2's
-              cluster path or K4's chunked path fails the run).
+              (of every K1-K6 kernel; a spill in K1's register path, K2's
+              cluster path, K4's chunked path or K6 fails the run).
 2. kernel   — K1 (the fused collective kernel) against its plain PyTorch
               version on the card, for every phase kind, operator and wire
               dtype, over rank counts of its register path (p <= 16) and
@@ -37,7 +37,12 @@ non-zero without printing a result:
               chunked and column paths over ragged T and D in every dtype,
               views off the vector alignment, broadcast h0, the exact
               a = b = 1 case at T = 4096 (bitwise), 20 back-to-back calls
-              and calls on two streams, launches by path held to the plan.
+              and calls on two streams, launches by path held to the plan;
+              K6 (the chunked SSD's chunk output) through
+              ``ops.ssd_chunk_out`` at Mamba2-130m's layer (8, 4096, 24
+              heads), a row of Granite's (1, 16384, 128 heads) and chunks
+              of 128 and 64 rows, in bf16 and fp16, one launch a call, each
+              held to its plain version by relative L2 (``K6_REL_L2``).
 4. serve    — the model substrate and the serving path
               (``repro_torch.models``, ``repro_torch.serving``): Mamba2-130m
               at full width in float32, ``lm_prefill`` at (2, 256) on the
@@ -68,7 +73,7 @@ non-zero without printing a result:
               1e-4; K3 once for all 8 shards); the 24-layer Mamba2-130m
               ``lm_forward`` at (8, 4096) in bf16 under that mesh and without
               it (logits' max and median gap held to ``MESH_FORWARD_BOUND``,
-              24 K3 launches, host ms in turns); one OLMoE-1B-7B MoE block at
+              24 K3 and 24 K6 launches each way, host ms in turns); one OLMoE-1B-7B MoE block at
               full width in float32, x (4, 512, 2048), expert-parallel under
               (1, 8) and (2, 4) against ``_dense_moe`` (2e-4,
               ``load_balance`` 1e-3; one K3 launch a block for the (8, 64)
@@ -157,9 +162,11 @@ non-zero without printing a result:
               expert offsets, one (1, 2^26) row of I/O offsets (K3's
               look-back), memory-bound (8192, 8192) scans,
               Mamba2-130m's SSD recurrence, SmolLM-360M and Gemma3-27B
-              attention and a decode step. The launch counts of K3, K4 (also
-              by path) and K5 are zeroed right before and read right after
-              (one a call for K3 and K4; for K5 the launches its C entry
+              attention and a decode step, the chunked SSD's chunk output
+              (K6) at Mamba2-130m's and Granite-4.0-H-Small's layers. The
+              launch counts of K3, K4 (also by path), K5 and K6 are zeroed
+              right before and read right after (one a call for K3, K4 and
+              K6; for K5 the launches its C entry
               reports, held to ``plan_launch``'s count; K3's and K4's also by
               path); each result is held against its plain version.
 12. spmd     — the per-rank path: K2 (the per-rank collective kernel)
@@ -324,6 +331,10 @@ KERNELS = {
            "src/repro/kernels/ssd_scan.py:33", None),
     "k5": ("k5_flash_attention", "flash_attention",
            "src/repro/kernels/flash_attention.py:27", "k5_flash_kernel"),
+    # no TPU kernel: the reference computes the chunk output in jnp
+    "k6": ("k6_ssd_chunk", "ssd_chunk",
+           "none (src/repro/models/mamba.py computes it in jnp)",
+           "k6_ssd_chunk_kernel"),
 }
 
 
@@ -368,6 +379,7 @@ def kernel_modules():
         "k3": importlib.import_module("repro_torch.kernels.prefix_scan"),
         "k4": importlib.import_module("repro_torch.kernels.ssd_scan"),
         "k5": importlib.import_module("repro_torch.kernels.flash_attention"),
+        "k6": importlib.import_module("repro_torch.kernels.ssd_chunk"),
     }
 
 
@@ -553,6 +565,7 @@ def phase_device(torch):
                               "k2_peers_kernel"))
     k4_kernels = ptxas_paths(_build.build_log("ssd_scan"), tuple(K4_KERNELS.values()))
     k3_kernels = ptxas_paths(_build.build_log("prefix_scan"), (KERNELS["k3"][3],))
+    k6_kernels = ptxas_paths(_build.build_log("ssd_chunk"), (KERNELS["k6"][3],))
     # the register and cluster kernels shrink VEC (or keep one row) so that
     # nothing spills, and K4's chunked kernel holds its steps in registers;
     # a build loaded from an earlier run has no log to read
@@ -562,6 +575,10 @@ def phase_device(torch):
                     and spill]
         if spilling:
             raise AssertionError(f"ptxas spills in {spilling[:5]}")
+    # K6 holds a tile's weights and products in registers
+    spilling = [k for k, (_, spill) in k6_kernels.items() if spill]
+    if spilling:
+        raise AssertionError(f"ptxas spills in {spilling}")
     name = torch.cuda.get_device_name(0)
     emit({
         "phase": "device",
@@ -573,13 +590,14 @@ def phase_device(torch):
         "libraries": [str(p.relative_to(REPO)) for p in paths.values()],
         "build_s": round(build_s, 3),
         "ptxas": ptxas,
-        # [registers, spill-store bytes] of every K1-K5 kernel
+        # [registers, spill-store bytes] of every K1-K6 kernel
         "k5_kernels": ptxas_paths(_build.build_log("flash_attention"),
                                   ("k5_flash_kernel",)),
         "k1_kernels": k1_kernels,
         "k2_kernels": k2_kernels,
         "k4_kernels": k4_kernels,
         "k3_kernels": k3_kernels,
+        "k6_kernels": k6_kernels,
     })
     return name, smi
 
@@ -1504,6 +1522,105 @@ def onchip_granite_attention(torch, device, check, worst_row):
             "default_scale_row_rel_err": default_scale_err}
 
 
+#: K6 against its plain version on the card (float32, TF32 off), by relative
+#: L2 over the whole output: both compute the same formula from the same
+#: bf16-rounded scores, K6 its products in float64, so they differ by
+#: float32 rounding alone (7e-9 at both cells' layers in the card tests),
+#: and K6's card tests hold it to the eager path at the same bar
+K6_REL_L2 = 1e-5
+#: K6 against its plain version element by element, in the entry phase
+K6_TOL = (1e-4, 1e-4)
+#: (B, S, H, chunk, dtype name) of the onchip cases: Mamba2-130m's layer, a
+#: row of Granite-4.0-H-Small's (one of its two), chunks of 128 and 64 rows,
+#: and fp16
+K6_CASES = ((8, 4096, 24, 256, "bfloat16"), (1, 16384, 128, 256, "bfloat16"),
+            (2, 2048, 24, 128, "bfloat16"), (2, 1024, 8, 64, "bfloat16"),
+            (2, 2048, 24, 256, "float16"), (2, 2048, 24, 64, "float16"))
+
+
+def k6_operands(torch, gen, B, S, H, Q, dtype, device):
+    """K6's operands as ``_ssd_chunked`` makes them at head size 64 and
+    state 128: the scores from the model type's einsum of C and B (the two
+    halves of one BC projection, so C's rows lie 2N apart), the segments a
+    cumulative sum of step sizes softplus'd around 1 times decay rates of
+    1-16 (``A_log``'s range) in K3's (B, c, H, Q) layout, float32 incoming
+    states. Returns the operands and B."""
+    N, P = 128, 64
+    nc = S // Q
+    x = torch.randn((B, nc, Q, H, P), generator=gen, device=device).to(dtype)
+    bc = (0.5 * torch.randn((B, nc, Q, 2 * N), generator=gen,
+                            device=device)).to(dtype)
+    Bm, C = bc[..., :N], bc[..., N:]
+    scores = torch.einsum("bcin,bcjn->bcij", C, Bm)
+    raw = 0.5 * torch.randn((B, nc, Q, H), generator=gen, device=device)
+    dt = torch.nn.functional.softplus(raw + math.log(math.e - 1))
+    dA = dt * -torch.linspace(1.0, 16.0, H, device=device)
+    seg = torch.movedim(torch.cumsum(dA, dim=2), 2, 3).contiguous()
+    S_exc = torch.randn((B, nc, H, P, N), generator=gen, device=device)
+    return (scores, seg, x, C, S_exc), Bm
+
+
+def rel_l2(torch, got, want) -> float:
+    """``||got - want|| / ||want||`` over the whole tensor, in float64."""
+    g, w = got.double(), want.double()
+    return float((g - w).norm() / w.norm().clamp_min(1e-300))
+
+
+def onchip_k6(torch, device):
+    """K6 through ``ops.ssd_chunk_out`` over ``K6_CASES``: one launch a call
+    (K6's count read right before and after), the output shape and type,
+    finite, and within ``K6_REL_L2`` of ``ref.ref_ssd_chunk_out`` on the
+    same operands. Also read, not held: how far the plain version moves
+    where its scores come from a float32 product rounded to the model type
+    once (the order a kernel's own score product would sum in) instead of
+    the model type's einsum, and that einsum's CUDA-event ms: what the
+    eager scores handed to K6 keep out, and what they cost."""
+    from repro_torch.kernels import ops, ref
+
+    k6 = kernel_modules()["k6"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(33)
+    rows = []
+    for B, S, H, Q, name in K6_CASES:
+        dtype = getattr(torch, name)
+        o, Bm = k6_operands(torch, gen, B, S, H, Q, dtype, device)
+        what = f"K6 {name} (B, S, H, Q) = {(B, S, H, Q)}"
+        torch.cuda.synchronize()
+        before = k6.launches
+        got = ops.ssd_chunk_out(*o)
+        launched = k6.launches - before
+        torch.cuda.synchronize()
+        if launched != 1:
+            raise AssertionError(f"{what}: {launched} launches, 1 planned")
+        if got.shape != o[2].shape or got.dtype != torch.float32 or not bool(
+                torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: {tuple(got.shape)}/{got.dtype}, "
+                                 f"finite {bool(torch.isfinite(got).all())}")
+        want = ref.ref_ssd_chunk_out(*o)
+        err = rel_l2(torch, got, want)
+        if not err <= K6_REL_L2:
+            raise AssertionError(f"{what}: relative L2 {err} (limit "
+                                 f"{K6_REL_L2})")
+        row = {"shape": [B, S, H, Q], "dtype": name, "launches": launched,
+               "rel_l2": err, "max_abs_err": max_abs_err(torch, got, want)}
+        del got
+        if Q == 256 and name == "bfloat16":
+            scores32 = torch.einsum("bcin,bcjn->bcij", o[3].float(),
+                                    Bm.float()).to(dtype)
+            moved = ref.ref_ssd_chunk_out(scores32, *o[1:])
+            row["scores_rounded_apart"] = float(
+                (scores32 != o[0]).double().mean())
+            row["scores_order_rel_l2"] = rel_l2(torch, moved, want)
+            # what the eager scores cost: the model type's einsum alone
+            row["scores_einsum_ms"] = event_ms(
+                torch, lambda: torch.einsum("bcin,bcjn->bcij", o[3], Bm), 20)
+            del moved, scores32
+        rows.append(row)
+        del want, o, Bm
+        torch.cuda.empty_cache()
+    return rows
+
+
 def onchip_k3(torch, device, check):
     """K3 through ``ops.prefix_scan`` (and ``scan_rows(reverse=True)``) on
     every path and vector width, one launch a call; returns the cases, the
@@ -1685,16 +1802,19 @@ def phase_onchip(torch, device):
             cases += 1
     granite = onchip_granite_attention(torch, device, check, worst_row)
     cases += 1
+    k6 = onchip_k6(torch, device)
+    cases += len(k6)
     emit({
         "phase": "onchip", "cases": cases, "max_abs_err": worst,
         "k5_row_rel_err": worst_row, "k5_route_granite": granite,
         "k4_path_launches": k4_paths,
         "k3_path_launches": k3_paths, "k3_variants": k3_variants,
-        "k3_long_row": k3_long,
+        "k3_long_row": k3_long, "k6": k6,
         "tolerances": {
             "k3": "bitwise for max and integers; float32 rtol 1e-4 (add atol "
                   "1e-3); bf16 rtol 1e-2, fp16 rtol 2e-3 (add atol = rtol)",
             "k4": SSD_TOL, "k5": FLASH_TOL, "k5_rows": FLASH_ROW_TOL,
+            "k6_rel_l2": K6_REL_L2,
         },
         "ok": True,
     })
@@ -1855,6 +1975,22 @@ def entry_cases(torch, device):
             head=not cases or cases[-1].key != "k5",
             launches=plan.launches, path=plan.path,
         ))
+    # the chunked SSD's chunk output at the two prefill cells' layers
+    for label, (B, S, H) in (
+        ("mamba2_130m ssd chunk output (8,4096,24) bf16", (8, 4096, 24)),
+        ("granite_4_0_h_small ssd chunk output (2,16384,128) bf16",
+         (2, 16384, 128)),
+    ):
+        o, _ = k6_operands(torch, gen, B, S, H, 256, torch.bfloat16, device)
+        cost = roofline().kernel_cost("k6", batch=B, chunks=S // 256,
+                                      chunk=256, heads=H, head_dim=64,
+                                      state=128, dtype=torch.bfloat16)
+        cases.append(EntryCase(
+            "k6", label, lambda o=o: ops.ssd_chunk_out(*o),
+            lambda o=o: ref.ref_ssd_chunk_out(*o), None, K6_TOL, cost.bytes,
+            flops=cost.flops, dtype=torch.bfloat16,
+            head=cases[-1].key != "k6",
+        ))
     torch.cuda.synchronize()
     return cases
 
@@ -1862,7 +1998,7 @@ def entry_cases(torch, device):
 def phase_entry(torch, device):
     mods = kernel_modules()
     cases = entry_cases(torch, device)
-    for key in ("k3", "k4", "k5"):
+    for key in ("k3", "k4", "k5", "k6"):
         mods[key].launches = 0
     for path in mods["k4"].path_launches:
         mods["k4"].path_launches[path] = 0
@@ -1870,7 +2006,7 @@ def phase_entry(torch, device):
         mods["k3"].path_launches[path] = 0
     outs = [c.call() for c in cases]
     torch.cuda.synchronize()
-    launches = {key: mods[key].launches for key in ("k3", "k4", "k5")}
+    launches = {key: mods[key].launches for key in ("k3", "k4", "k5", "k6")}
     by_path = {key: dict(mods[key].path_launches) for key in ("k3", "k4")}
     for key, made in by_path.items():
         planned = {path: sum(c.launches for c in cases
@@ -1880,7 +2016,7 @@ def phase_entry(torch, device):
             raise AssertionError(f"{key}: launched {made} by path, planned {planned}")
     k4_paths = by_path["k4"]
     for key, n in launches.items():
-        # K3 and K4 launch once a call; K5 counts what its C entry
+        # K3, K4 and K6 launch once a call; K5 counts what its C entry
         # launched, held to what plan_launch planned
         want = sum(c.launches for c in cases if c.key == key)
         calls = sum(c.key == key for c in cases)
@@ -1901,6 +2037,11 @@ def phase_entry(torch, device):
         if case.key == "k5":
             row["row_rel_err"] = check_rows(torch, got, want, case.dtype,
                                             f"entry {case.label}")
+        if case.key == "k6":
+            row["rel_l2"] = rel_l2(torch, got, want)
+            if not row["rel_l2"] <= K6_REL_L2:
+                raise AssertionError(f"entry {case.label}: relative L2 "
+                                     f"{row['rel_l2']} (limit {K6_REL_L2})")
         rows.append(row)
         del want
     del outs
@@ -3252,7 +3393,7 @@ def phase_times(torch, device, card, launches):
 
 
 def phase_times_onchip(torch, card, launches, cases):
-    """K3-K5 rows at the entry shapes; returns their kernels-line entries,
+    """K3-K6 rows at the entry shapes; returns their kernels-line entries,
     each from its kernel's headline row."""
     rows = []
     for case in cases:
@@ -3309,7 +3450,7 @@ def phase_times_onchip(torch, card, launches, cases):
                                       "bound_ms", "bound_by", "library_ms",
                                       "timing", "event_ms")},
          "shape": head[key]["call"]}
-        for key in ("k3", "k4", "k5")
+        for key in ("k3", "k4", "k5", "k6")
     ]
 
 
@@ -3805,7 +3946,8 @@ def times_serve_forward(torch, device, smi, mods):
     """One Mamba2-130m lm_forward at (8, 4096) in bf16 under the profiler:
     K3's device time at its (8, 16, 24, 256) segment-scan shape inside the
     model, beside the same scan alone on a tensor of that shape (the entry
-    phase's input) and its bytes bound."""
+    phase's input) and its bytes bound; K6's launches (one a layer, its
+    count zeroed right before) and device time a launch inside the model."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
@@ -3817,7 +3959,7 @@ def times_serve_forward(torch, device, smi, mods):
     model = api.init(torch.Generator().manual_seed(23), device=device)
     B, S = SERVE_FORWARD
     tokens = model_batch(torch, cfg, B, S, device, seed=23)["tokens"]
-    k3 = mods["k3"]
+    k3, k6 = mods["k3"], mods["k6"]
 
     def forward():
         with torch.inference_mode():
@@ -3847,16 +3989,23 @@ def times_serve_forward(torch, device, smi, mods):
 
     def counted():
         before = k3.launches
+        k6.launches = 0
         forward()
-        launched.append(k3.launches - before)
+        launched.append((k3.launches - before, k6.launches))
 
     run = profiled(torch, counted, warmup=0)
     wall_ms = run.wall_ms
     k3_ms, k3_profiled = kernel_sum(run.kernels, "k3_scan_kernel")
-    if launched[-1] != cfg.num_layers or k3_profiled not in (
+    k6_ms, k6_profiled = kernel_sum(run.kernels, KERNELS["k6"][3])
+    if launched[-1][0] != cfg.num_layers or k3_profiled not in (
             0, cfg.num_layers):
-        raise AssertionError(f"forward: K3 launched {launched[-1]} "
+        raise AssertionError(f"forward: K3 launched {launched[-1][0]} "
                              f"times, {k3_profiled} profiled")
+    # every layer's chunk output on K6 (bf16 under inference_mode, chunk 256)
+    if launched[-1][1] != cfg.num_layers or k6_profiled not in (
+            0, cfg.num_layers):
+        raise AssertionError(f"forward: K6 launched {launched[-1][1]} "
+                             f"times, {k6_profiled} profiled")
     # the entry phase's input for this shape: the same scan alone, 20 calls
     # in one profile
     gen = torch.Generator(device=device)
@@ -3892,6 +4041,9 @@ def times_serve_forward(torch, device, smi, mods):
         "k3_ms_per_launch_in_model": (None if run.ms is None
                                       else k3_ms / cfg.num_layers),
         "k3_ms_alone": alone, "k3_shape": [8, 16, 24, 256],
+        "k6_launches": launched[-1][1],
+        "k6_ms_per_launch_in_model": (k6_ms / k6_profiled if k6_profiled
+                                      else None),
         # the movedim-and-reshape copy before each launch, alone
         "segment_copy": {"input": [list(dAc.shape), dtype_name(dAc.dtype)],
                          "ms": copy_ms, "graph_ms": copy_graph_ms,
@@ -4013,9 +4165,10 @@ def mesh_mixer(torch, device, smi, mods):
     failed = [c for c in checks if not c[1]]
     if failed:
         raise AssertionError(f"full-width SP mixer: {failed}")
-    if launches["k3"] != 1:
+    if launches["k3"] != 1 or launches["k6"] != 0:
         raise AssertionError(f"SP mixer: K3 launched {launches['k3']} times, "
-                             "1 predicted")
+                             f"1 predicted; K6 {launches['k6']}, none in "
+                             "float32")
     # the fourth check: the gradient through dist_exscan, held to the
     # unsharded mixer's; K3 once forward and once back to front for all 8
     # shards
@@ -4072,7 +4225,8 @@ def mesh_forward(torch, device, smi, mods):
     layers, weights from a seed), under the co-resident (1, 8) mesh and
     without one: the paper's scan carries every layer's SSD state across 8
     shards. The logits' gap is held to ``MESH_FORWARD_BOUND``; K3 launches
-    once a layer for all shards; each forward's ms on the host clock
+    once a layer for all shards, and K6 once a layer (every layer's chunk
+    output, plain and meshed); each forward's ms on the host clock
     (synchronized), in turns."""
     import statistics
 
@@ -4103,6 +4257,10 @@ def mesh_forward(torch, device, smi, mods):
             out = fn()
             torch.cuda.synchronize()
             times[name].append((time.perf_counter() - t0) * 1e3)
+            k6 = mods["k6"].launches
+            if k6 != cfg.num_layers:
+                raise AssertionError(f"{name} forward: K6 launched {k6} "
+                                     f"times, {cfg.num_layers} layers")
             if name == "mesh":
                 k3 = mods["k3"].launches
                 if k3 != cfg.num_layers:
@@ -4121,7 +4279,7 @@ def mesh_forward(torch, device, smi, mods):
     line = {"phase": "mesh_forward", "arch": cfg.name, "dtype": cfg.dtype,
             "shape": [B, S], "mesh": [1, 8], "layers": cfg.num_layers,
             "logits_gap": gap, "bound": MESH_FORWARD_BOUND,
-            "k3_launches": cfg.num_layers,
+            "k3_launches": cfg.num_layers, "k6_launches": cfg.num_layers,
             "ms": {k: statistics.median(v) for k, v in times.items()},
             "ms_runs": times, "card": smi, "ok": True}
     emit(line)
@@ -4371,8 +4529,9 @@ def phase_mesh(torch, device, smi):
           "moe_max_abs_err": {str(r["mesh"]): r["max_abs_err"]
                               for r in moe["runs"]},
           "serve_tokens_compared": serve["tokens_compared"],
-          "k3_launches": k3, "card": smi, "ok": True})
-    return {"k3_launches": k3}
+          "k3_launches": k3, "k6_launches": forward["k6_launches"],
+          "card": smi, "ok": True})
+    return {"k3_launches": k3, "k6_launches": forward["k6_launches"]}
 
 
 def phase_times_mesh(torch, device, smi):
@@ -4751,7 +4910,8 @@ def roofline_calls(torch, device):
     ``times_serve_forward`` (weights from seed 23) and one training step at
     ``ROOFLINE_STEP`` as ``launch.train`` builds it (seed 0). Yields
     ``(call, fn, model_flops, K3 (forward, reverse) launches predicted,
-    K3's shape)``."""
+    K3's shape, K6 launches predicted)``: K6 takes every layer's chunk
+    output in the forward, none in the step, which records gradients."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, batches
@@ -4776,7 +4936,7 @@ def roofline_calls(torch, device):
            an.model_flops(cfg, ShapeConfig("roofline", S, B, "prefill"),
                           "prefill"),
            (L, 0), {"rows": B * (S // Q) * H, "length": Q,
-                    "dtype": torch.float32})
+                    "dtype": torch.float32}, L)
     del model, forward
     torch.cuda.empty_cache()
 
@@ -4801,7 +4961,7 @@ def roofline_calls(torch, device):
 
     yield ("train_step", step, an.model_flops(cfg, shape, "train"),
            (2 * L, L), {"rows": B * (S // Q) * H, "length": Q,
-                        "dtype": torch.float32})
+                        "dtype": torch.float32}, 0)
     del state, step
     torch.cuda.empty_cache()
 
@@ -4819,16 +4979,18 @@ def phase_roofline(torch, device, smi, card):
     wrong count) and ``mfu = model_flops / (device_s x bf16 peak)``; K3's
     charges equal to its launches in the counted run (forward, back to
     front) and to the prediction, each at ``kernel_cost("k3", ...)`` of
-    the model's segment-scan shape."""
+    the model's segment-scan shape; K6's charges equal to its launches and
+    to the prediction."""
     from repro_torch.roofline.op_cost import CostMode
 
     an = roofline()
-    k3 = kernel_modules()["k3"]
+    k3, k6 = kernel_modules()["k3"], kernel_modules()["k6"]
     peak = peak_flops(card, "bfloat16")
     t0 = time.perf_counter()
     rows = {}
     primer = torch.zeros(1, device="cuda")
-    for what, fn, mf, want_k3, k3_shape in roofline_calls(torch, device):
+    for what, fn, mf, want_k3, k3_shape, want_k6 in roofline_calls(
+            torch, device):
 
         def primed(fn=fn):
             primer.add_(1)
@@ -4838,6 +5000,7 @@ def phase_roofline(torch, device, smi, card):
         fn()                                  # warm-up
         torch.cuda.synchronize()
         before = (k3.launches, k3.reverse_launches)
+        k6.launches = 0
         t1 = time.perf_counter()
         with CostMode() as mode:
             fn()
@@ -4852,6 +5015,11 @@ def phase_roofline(torch, device, smi, card):
             raise AssertionError(
                 f"roofline {what}: K3 charges (forward, reverse) {charged}, "
                 f"launches {made}, {want_k3} predicted")
+        k6_charges = sum(c.kind == "k6" for c in mode.charges)
+        if not k6_charges == k6.launches == want_k6:
+            raise AssertionError(
+                f"roofline {what}: K6 charges {k6_charges}, launches "
+                f"{k6.launches}, {want_k6} predicted")
         one = an.kernel_cost("k3", **k3_shape)
         for c in charges:
             got = {k: c.shape[k] for k in k3_shape}
@@ -4875,6 +5043,7 @@ def phase_roofline(torch, device, smi, card):
             "device_s": device_s, "timing": timing, "wall_ms": wall_ms,
             "bound_share": share, "mfu": mf / (device_s * peak),
             "k3_charges": list(charged), "k3_launches": list(made),
+            "k6_charges": k6_charges,
             "k3_charge_bytes": one.bytes, "unpriced": mode.unpriced,
             # where the counted bytes are: the eight heaviest ops
             "top_bytes": sorted(((name, fb[1]) for name, fb in
@@ -4890,7 +5059,8 @@ def phase_roofline(torch, device, smi, card):
           "arch": "mamba2-130m", "dtype": "bfloat16",
           "calls": {w: {k: r[k] for k in (
               "flops", "bytes", "t_bound_s", "bottleneck", "device_s",
-              "bound_share", "mfu", "k3_charges")} for w, r in rows.items()},
+              "bound_share", "mfu", "k3_charges", "k6_charges")}
+              for w, r in rows.items()},
           "card": smi, "ok": True})
     return rows
 
@@ -4965,7 +5135,7 @@ def main() -> int:
     # the serving path's and the mesh paths' profiler readings, then
     # ``profile``: the order in which profile_offload once lost its device
     # events
-    phase_times_serve(torch, device, smi)
+    _, forward = phase_times_serve(torch, device, smi)
     phase_times_mesh(torch, device, smi)
     phase_times_train(torch, device, smi, card)
     phase_profile(torch, device)
@@ -4992,6 +5162,13 @@ def main() -> int:
     # each equal to its launches there
     onchip[0]["roofline_launches"] = {
         call: row["k3_charges"] for call, row in roof.items()}
+    # K6 under every layer of the full-width Mamba2-130m forward, plain and
+    # meshed, and its charges in the roofline's counted calls
+    k6 = next(row for row in onchip if row["name"] == KERNELS["k6"][0])
+    k6["forward_launches"] = forward["k6_launches"]
+    k6["mesh_launches"] = mesh["k6_launches"]
+    k6["roofline_launches"] = {
+        call: row["k6_charges"] for call, row in roof.items()}
     k1["serve_launches"] = serve["tenancy"]["k1_launches"]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     emit({"kernels": [k1, k2, k2_peers, *onchip]})

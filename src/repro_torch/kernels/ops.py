@@ -4,7 +4,8 @@ The device of the input decides what runs: a CPU tensor takes the plain
 PyTorch version (:mod:`repro_torch.kernels.ref`), a CUDA tensor launches the
 hand-written CUDA kernel (K3 :mod:`~repro_torch.kernels.prefix_scan`, K4
 :mod:`~repro_torch.kernels.ssd_scan`, K5
-:mod:`~repro_torch.kernels.flash_attention`) or raises. There is no fallback
+:mod:`~repro_torch.kernels.flash_attention`, K6
+:mod:`~repro_torch.kernels.ssd_chunk`) or raises. There is no fallback
 from one to the other.
 
 Signatures and layouts are the reference's. The wrappers flatten to the
@@ -20,10 +21,13 @@ kernels' 2-D / 3-D forms and reshape back. Differences:
   (:class:`~repro_torch.kernels.prefix_scan.PrefixScan`); a ``max`` or
   ``mul`` scan of a tensor that requires grad raises
   ``NotImplementedError``;
-* ``ssd_scan`` and ``flash_attention`` have no backward: under autograd,
-  with an input that requires grad, each raises ``NotImplementedError``
-  instead of returning a result without autograd history (K4 and K5 write
-  into a fresh tensor through ctypes, which would drop the gradient);
+* ``ssd_scan``, ``flash_attention`` and ``ssd_chunk_out`` have no
+  backward: under autograd, with an input that requires grad, each raises
+  ``NotImplementedError`` instead of returning a result without autograd
+  history (K4-K6 write into a fresh tensor through ctypes, which would drop
+  the gradient);
+* ``ssd_chunk_out`` (K6) has no counterpart among the reference's kernels:
+  the reference computes the chunked SSD's chunk output in jnp;
 * ``ssd_scan`` starts K4's recurrence from ``h0`` instead of folding it in
   afterwards through a multiplicative prefix scan (one pass instead of
   three; the same function up to rounding).
@@ -38,6 +42,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import prefix_scan as _scan
+from repro_torch.kernels import ssd_chunk as _chunk
 from repro_torch.kernels import ssd_scan as _ssd
 
 
@@ -141,3 +146,17 @@ def flash_attention(
     _no_grad_through("flash_attention", q, k, v)
     return _flash.attention(q, k, v, causal=causal, window=window,
                             q_offset=q_offset)
+
+
+def ssd_chunk_out(
+    scores: torch.Tensor,   # (B, c, Q, Q) the chunk's C B^T, model type
+    seg: torch.Tensor,      # (B, c, H, Q) float32 cumulative log decay
+    x: torch.Tensor,        # (B, c, Q, H, P) dt-scaled inputs, model type
+    C: torch.Tensor,        # (B, c, Q, N) model type, rows evenly strided
+    S_exc: torch.Tensor,    # (B, c, H, P, N) float32 incoming states
+) -> torch.Tensor:
+    """The chunked SSD's chunk output ``y_intra + y_inter``, (B, c, Q, H, P)
+    in float32: K6 on the card, its plain version on the CPU
+    (:mod:`repro_torch.kernels.ssd_chunk` gives the operands' contract)."""
+    _no_grad_through("ssd_chunk_out", scores, seg, x, C, S_exc)
+    return _chunk.chunk_out(scores, seg, x, C, S_exc)

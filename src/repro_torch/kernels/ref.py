@@ -2,8 +2,8 @@
 ``repro.kernels.ref``).
 
 These are the semantic ground truth of K3 (prefix scan), K4 (diagonal SSM
-recurrence) and K5 (flash attention): the wrappers in
-:mod:`repro_torch.kernels.ops` run them for CPU tensors, the CPU tests hold
+recurrence), K5 (flash attention) and K6 (the chunked SSD's chunk output):
+the wrappers in :mod:`repro_torch.kernels.ops` run them for CPU tensors, the CPU tests hold
 them against the JAX reference, and ``chip_smoke.py`` holds each CUDA kernel
 against them on the card. No CUDA tensor on the main path reaches them.
 
@@ -110,6 +110,50 @@ def ref_chunk_state(
     """
     del a_cum_last
     return torch.einsum("...tp,...tn->...pn", x_decay, B_blk)
+
+
+def ref_ssd_chunk_out(
+    scores: torch.Tensor, seg: torch.Tensor, x: torch.Tensor, C: torch.Tensor,
+    S_exc: torch.Tensor,
+) -> torch.Tensor:
+    """The chunked SSD's chunk output, ``y_intra + y_inter`` of
+    ``models.mamba._ssd_chunked`` (whose eager path is these two functions):
+    ``scores`` (B, c, Q, Q) the chunk's ``C B^T``, ``seg`` (B, c, H, Q) the
+    within-chunk cumulative log decay, ``x`` (B, c, Q, H, P) the dt-scaled
+    inputs, ``C`` (B, c, Q, N), ``S_exc`` (B, c, H, P, N) each chunk's
+    incoming state. Returns (B, c, Q, H, P) in the operands' promoted type
+    (float32 for a bf16 model)."""
+    return ref_ssd_chunk_intra(scores, seg, x) + ref_ssd_chunk_inter(C, S_exc, seg)
+
+
+def ref_ssd_chunk_intra(scores: torch.Tensor, seg: torch.Tensor,
+                        x: torch.Tensor) -> torch.Tensor:
+    """``y_intra``: the causal, decayed scores ``W`` (B, c, Q, Q, H) times
+    ``x``; operands as :func:`ref_ssd_chunk_out`'s."""
+    Q = scores.shape[-1]
+    seg = seg.transpose(2, 3)                                    # (B,c,Q,H)
+    Lmat = torch.exp(
+        torch.clamp(seg[:, :, :, None, :] - seg[:, :, None, :, :], -60.0, 0.0)
+    )                                                            # (B,c,i,j,H)
+    ii = torch.arange(Q, device=scores.device)
+    causal = (ii[:, None] >= ii[None, :]).to(scores.dtype)
+    W = scores[..., None] * Lmat * causal[None, None, :, :, None]
+    return _promoted_einsum("bcijh,bcjhp->bcihp", W, x)
+
+
+def ref_ssd_chunk_inter(C: torch.Tensor, S_exc: torch.Tensor,
+                        seg: torch.Tensor) -> torch.Tensor:
+    """``y_inter``: each row's read of its chunk's incoming state, decayed
+    to the row; operands as :func:`ref_ssd_chunk_out`'s."""
+    decay = torch.exp(seg.transpose(2, 3))[..., None]            # (B,c,Q,H,1)
+    return _promoted_einsum("bcin,bchpn->bcihp", C, S_exc) * decay
+
+
+def _promoted_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` over operands promoted to their common type, as the
+    models' ``einsum`` (and ``jnp.einsum``) promote them."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(spec, a.to(dt), b.to(dt))
 
 
 def attention_mask(

@@ -11,7 +11,16 @@ The chunked SSD of arXiv:2405.21060, as the reference computes it:
   a forward or prefill; a decode step launches none;
 * the inter-chunk state propagation ``h' = A*h + B`` is the reference's
   ``lax.associative_scan`` over the chunk axis, here a loop over the chunks
-  with the same operator and operand order ``comb(l, r)``.
+  with the same operator and operand order ``comb(l, r)``;
+* the chunk output ``y = y_intra + y_inter`` of a call that :func:`k6_takes`
+  (bf16 / fp16 on the card, chunks of a multiple of 64 rows up to 256,
+  head size 64, state 128, no autograd graph recorded) is one K6 launch
+  (``kernels/csrc/ssd_chunk.cu``) over the chunk's bf16 scores, which keeps
+  the (B, c, Q, Q, H) float32 decay and weight tensors out of device
+  memory; every other call (training, float32, the CPU, other widths)
+  computes it as the reference writes it, through K6's plain version
+  (``kernels.ref.ref_ssd_chunk_intra`` and ``_inter``). Each call is one ``ssd.block``
+  span, each K6 call one ``k6.call``.
 
 Projections are stored per segment (z, x, BC, dt), as in the reference.
 
@@ -43,8 +52,11 @@ from repro_torch import compat, perf_flags
 from repro_torch.compat import P
 from repro_torch.core import SSD, dist_exscan
 from repro_torch.core.trees import tree_map
-from repro_torch.kernels.ops import prefix_scan
+from repro_torch.kernels import ssd_chunk as K6
+from repro_torch.kernels.ops import prefix_scan, ssd_chunk_out
+from repro_torch.kernels.ref import ref_ssd_chunk_inter, ref_ssd_chunk_intra
 from repro_torch.models.layers import const, einsum, param, remat
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.sharding import current_topology, shard
 
 _CONV_WIDTH = 4
@@ -135,6 +147,16 @@ def _chunk_scan(A_c: torch.Tensor, S_c: torch.Tensor):
     return torch.stack(A_inc, 1), torch.stack(S_inc, 1)
 
 
+def k6_takes(device_type: str, dtype: Optional[torch.dtype], chunk: int,
+             head_dim: int, state: int, records_grad: bool) -> bool:
+    """Whether :func:`_ssd_chunked` computes a call's chunk output on K6:
+    operands on the card, no autograd graph recorded (K6 has no backward),
+    and a type (``dtype`` None where ``xs``, ``Bc`` and ``Cc`` differ),
+    chunk, head size and state that K6 is built for (``K6.takes``)."""
+    return (device_type == "cuda" and not records_grad
+            and K6.takes(dtype, chunk, head_dim, state))
+
+
 def _ssd_chunked(
     xs: torch.Tensor,     # (B, S, H, P) conv'd inputs
     Bc: torch.Tensor,     # (B, S, N)
@@ -147,13 +169,24 @@ def _ssd_chunked(
     """Chunked SSD. Returns (y, (A_tot, S_tot), extras), as the reference.
 
     The sequence must be a whole number of chunks of ``min(chunk, S)``; the
-    reference asserts so, the port raises ``ValueError``."""
+    reference asserts so, the port raises ``ValueError``. One ``ssd.block``
+    span; where :func:`k6_takes`, the chunk output is one K6 call."""
+    with obs_tracing.span("ssd.block", "ssd"):
+        return _ssd_chunked_body(xs, Bc, Cc, dA, dt, chunk, state_in)
+
+
+def _ssd_chunked_body(xs, Bc, Cc, dA, dt, chunk, state_in):
     B, S, H, Pd = xs.shape
     N = Bc.shape[-1]
     Q = min(chunk, S)
     nc = S // Q
     if S % Q != 0:
         raise ValueError((S, Q))
+    dtype = xs.dtype if Bc.dtype == Cc.dtype == xs.dtype else None
+    operands = (xs, Bc, Cc, dA, dt) + tuple(state_in or ())
+    records_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in operands)
+    on_k6 = k6_takes(xs.device.type, dtype, Q, Pd, N, records_grad)
 
     xb = (xs * dt[..., None]).to(xs.dtype)           # dt-scaled inputs
     xbc_ = xb.reshape(B, nc, Q, H, Pd)
@@ -166,17 +199,11 @@ def _ssd_chunked(
 
     def intra(Ccc, Bcc, seg, xbc_):
         scores = einsum("bcin,bcjn->bcij", Ccc, Bcc)
-        Lmat = torch.exp(
-            torch.clamp(seg[:, :, :, None, :] - seg[:, :, None, :, :],
-                        -60.0, 0.0)
-        )  # (B,c,i,j,H)
-        ii = torch.arange(Q, device=xs.device)
-        causal = (ii[:, None] >= ii[None, :]).to(scores.dtype)
-        W = scores[..., None] * Lmat * causal[None, None, :, :, None]
-        return einsum("bcijh,bcjhp->bcihp", W, xbc_)
+        return ref_ssd_chunk_intra(scores, torch.movedim(seg, 2, 3), xbc_)
 
-    # the (B, c, Q, Q, H) decay matrix is recomputed in the backward
-    y_intra = remat(intra, Ccc, Bcc, seg, xbc_)
+    if not on_k6:
+        # the (B, c, Q, Q, H) decay matrix is recomputed in the backward
+        y_intra = remat(intra, Ccc, Bcc, seg, xbc_)
 
     # chunk summary states: S_c = sum_j decay_to_end_j * xb_j (x) B_j
     decay_end = torch.exp(seg[:, :, -1:, :] - seg)   # (B,c,Q,H)
@@ -191,8 +218,15 @@ def _ssd_chunked(
         S_exc = A_exc[..., None, None] * s_in[:, None] + S_exc
         A_exc = A_exc * a_in[:, None]
 
-    y_inter = einsum("bcin,bchpn->bcihp", Ccc, S_exc) * torch.exp(seg)[..., None]
-    y = (y_intra + y_inter).reshape(B, S, H, Pd)
+    if on_k6:
+        # the scores as the eager path's einsum rounds them, then K6 over
+        # K3's (B, c, H, Q) segments: y in one launch
+        scores = einsum("bcin,bcjn->bcij", Ccc, Bcc)
+        y = ssd_chunk_out(scores, torch.movedim(seg, 2, 3), xbc_, Ccc,
+                          S_exc).reshape(B, S, H, Pd)
+    else:
+        y_inter = ref_ssd_chunk_inter(Ccc, S_exc, torch.movedim(seg, 2, 3))
+        y = (y_intra + y_inter).reshape(B, S, H, Pd)
     A_tot, S_tot = A_inc[:, -1], S_inc[:, -1]        # totals
     if state_in is not None:
         S_tot = A_inc[:, -1][..., None, None] * state_in[1] + S_tot

@@ -235,6 +235,13 @@ def kernel_cost(kernel: str, **shape) -> KernelCost:
         return KernelCost(float(4 * bh * d * pairs),
                           float((2 * bh * sq * d + 2 * bh * skv * d) * size),
                           dt)
+    if kernel == "k6":
+        bc, Q, H = shape["batch"] * shape["chunks"], shape["chunk"], shape["heads"]
+        P, N = shape["head_dim"], shape["state"]
+        pairs = Q * (Q + 1) // 2
+        flops = 2 * bc * H * P * (pairs + Q * N)
+        read = bc * (Q * Q + Q * H * P + Q * N) * size + 4 * bc * H * (Q + P * N)
+        return KernelCost(float(flops), float(read + 4 * bc * Q * H * P), dt)
     raise ValueError(f"unknown kernel {kernel!r}")
 
 

@@ -106,7 +106,7 @@ class Cost:
 
 @dataclasses.dataclass(frozen=True)
 class Charge:
-    """One charged region: its kind (``"k1"``-``"k5"`` or a collective),
+    """One charged region: its kind (``"k1"``-``"k6"`` or a collective),
     what the caller said of its shape, and what it added to the count."""
 
     kind: str
@@ -417,7 +417,7 @@ def charged(kind: str, /, **shape):
     region inside another records nothing. With no counter active it does
     nothing.
 
-    ``kind`` is a kernel (``"k1"``-``"k5"``, priced by
+    ``kind`` is a kernel (``"k1"``-``"k6"``, priced by
     :func:`repro_torch.roofline.analysis.kernel_cost` from ``shape``) or
     one of :data:`COLLECTIVES` with ``payload`` (one rank's bytes),
     ``group`` (the group's size) and ``ranks`` (the rank rows the call

@@ -320,7 +320,8 @@ def test_package_exports_the_reference_entry_points():
     for name in ("prefix_scan", "ssd_scan", "flash_attention"):
         assert callable(getattr(jk, name)) and callable(getattr(tk, name))
     assert tk.SOURCES == ("fused_collective", "spmd_collective",
-                          "prefix_scan", "ssd_scan", "flash_attention")
+                          "prefix_scan", "ssd_scan", "flash_attention",
+                          "ssd_chunk")
     for mod in (K3, K4, K5):
         assert mod.launches == 0  # CPU tensors never launch a kernel
 
